@@ -18,16 +18,15 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from exemplars_vc_tpu_torch.kernels.build import check, load_library
+from exemplars_vc_tpu_torch.kernels.build import SMEM_LIMIT_BYTES, check, load_library
 
 BIG = 1e30
-# the kernel keeps three wavefronts of Ta floats in one block's shared memory
-SMEM_LIMIT_BYTES = 232_448
 
 
 def fits_smem(ta: int) -> bool:
     """Whether the wavefront kernel takes a source length of ``ta`` frames
-    (the counterpart of ``dtw_pallas.fits_vmem``)."""
+    (the counterpart of ``dtw_pallas.fits_vmem``): it keeps three wavefronts
+    of Ta floats in one block's shared memory."""
     return 3 * ta * 4 <= SMEM_LIMIT_BYTES
 
 

@@ -13,9 +13,10 @@ H0 = sqrt(max(mean(X), 0) / K) with K the dictionary's (padded) row count;
 a zero denominator becomes EPS; the error is checked every ``check_every``
 iterations and the solve stops when (prev − err) < tol·err_init. The
 Frobenius update runs through :mod:`exemplars_vc_tpu_torch.factorize.nmf_cuda`
-(the recon and update kernels on the card, their twins on the CPU); the
-error check reuses the recon output. KL stays plain torch (the JAX package
-has no kernel for it).
+(the recon and update kernels on the card, their twins on the CPU; with
+``fused=True`` one ``nmf_mu_fused`` launch per iteration, the counterpart of
+``nmf_activations_pallas(fused=True)``); the error check reuses the recon
+output. KL stays plain torch (the JAX package has no kernel for it).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from exemplars_vc_tpu_torch.factorize.nmf_cuda import EPS, nmf_recon, nmf_update
+from exemplars_vc_tpu_torch.factorize.nmf_cuda import EPS, nmf_mu_fused, nmf_recon, nmf_update
 
 
 class NmfState(NamedTuple):
@@ -48,10 +49,12 @@ def _kl_error(X: torch.Tensor, WH: torch.Tensor) -> torch.Tensor:
 
 def nmf_activations(X: torch.Tensor, A: torch.Tensor, beta_loss: str = "frobenius",
                     tol: float = 1e-4, max_iter: int = 150, check_every: int = 10,
-                    l1: float = 0.0) -> NmfState:
+                    l1: float = 0.0, fused: bool = False) -> NmfState:
     """Solve for H ≥ 0 with X ≈ H·A, A fixed (float32 throughout).
 
-    The tol test reads one scalar back every ``check_every`` iterations."""
+    The tol test reads one scalar back every ``check_every`` iterations.
+    ``fused=True`` (Frobenius only) runs each iteration as one
+    ``nmf_mu_fused`` call; the error check still goes through ``nmf_recon``."""
     X = X.float().contiguous()
     A = A.float().contiguous()
     F = X.shape[0]
@@ -62,12 +65,19 @@ def nmf_activations(X: torch.Tensor, A: torch.Tensor, beta_loss: str = "frobeniu
     if beta_loss == "frobenius":
         Num = X @ A.T                               # loop-invariant numerator
 
-        def step(H):
-            return nmf_update(nmf_recon(H, A), A, H, Num, l1, out=H)
+        if fused:
+            def step(H):
+                return nmf_mu_fused(H, A, Num, l1, out=H)
+        else:
+            def step(H):
+                return nmf_update(nmf_recon(H, A), A, H, Num, l1, out=H)
 
         def error(H):
             return _frob_error(X, nmf_recon(H, A))
     elif beta_loss in ("kullback-leibler", "kl"):
+        if fused:
+            raise ValueError("fused=True needs beta_loss='frobenius' "
+                             "(the JAX package has no fused KL kernel)")
         den = A.sum(dim=1)[None, :] + l1
         den = torch.where(den == 0.0, EPS, den)
 

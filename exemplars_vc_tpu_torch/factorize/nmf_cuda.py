@@ -1,7 +1,8 @@
 """Frobenius MU kernels: CUDA wrappers and their plain-PyTorch twins.
 
-``nmf_recon`` replaces ``exemplars_vc_tpu/factorize/nmf_pallas.py:_recon_kernel``
-and ``nmf_update`` replaces ``_update_kernel``; both are in ``csrc/nmf_mu.cu``.
+``nmf_recon`` replaces ``exemplars_vc_tpu/factorize/nmf_pallas.py:_recon_kernel``,
+``nmf_update`` replaces ``_update_kernel`` and ``nmf_mu_fused`` replaces
+``_fused_mu_call`` (one MU iteration per launch); all are in ``csrc/nmf_mu.cu``.
 A CUDA tensor goes to the kernel (or the call raises); a CPU tensor goes to
 the twin.
 """
@@ -111,3 +112,56 @@ def nmf_update(P: torch.Tensor, A: torch.Tensor, H: torch.Tensor,
 
 
 nmf_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one MU iteration as one kernel: H ← H ⊙ Num / ((H·A)·Aᵀ + l1)
+# ---------------------------------------------------------------------------
+
+# the fused kernel keeps a (D, 8) P tile beside 34 KB of staging in one
+# block's shared memory
+FUSED_MAX_D = 6144
+
+
+def nmf_mu_fused_plain(H: torch.Tensor, A: torch.Tensor, Num: torch.Tensor,
+                       l1: float = 0.0) -> torch.Tensor:
+    """One whole MU iteration: ``nmf_update_plain(H @ A, A, H, Num, l1)``."""
+    return nmf_update_plain(H @ A, A, H, Num, l1)
+
+
+def nmf_mu_fused(H: torch.Tensor, A: torch.Tensor, Num: torch.Tensor, l1: float = 0.0,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """One MU iteration in one launch; on CUDA through ``evc_nmf_fused_mu``
+    (counted in ``nmf_mu_fused.launches``), the counterpart of
+    ``nmf_activations_pallas(fused=True)``'s kernel. P = H·A stays on chip.
+    ``out=H`` updates H in place, which the kernel allows (a block reads and
+    writes only its own rows)."""
+    if H.device.type == "cpu":
+        res = nmf_mu_fused_plain(H, A, Num, l1)
+        if out is None:
+            return res
+        return out.copy_(res)
+    if H.device.type != "cuda":
+        raise ValueError(f"nmf_mu_fused: unsupported device {H.device}")
+    F, K = H.shape
+    D = A.shape[1]
+    for name, t, shape in (("A", A, (K, D)), ("H", H, (F, K)), ("Num", Num, (F, K))):
+        _check_f32(name, t, shape, H.device)
+    if D > FUSED_MAX_D:
+        raise ValueError(f"nmf_mu_fused: D = {D} exceeds the kernel's {FUSED_MAX_D} "
+                         f"(its P tile lives in shared memory)")
+    if out is None:
+        out = torch.empty_like(H)
+    else:
+        _check_f32("out", out, (F, K), H.device)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream(H.device).cuda_stream
+        _launch("evc_nmf_fused_mu", [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, vp],
+                H.data_ptr(), A.data_ptr(), Num.data_ptr(), out.data_ptr(), F, K, D,
+                float(l1), stream)
+    nmf_mu_fused.launches += 1
+    return out
+
+
+nmf_mu_fused.launches = 0

@@ -10,7 +10,10 @@ package (a directory ``.gitignore`` lists)::
 The hash covers the source and the flags, so an edited source rebuilds.
 A plain C interface keeps the build to seconds (no PyTorch headers). The
 wrappers pass device pointers and PyTorch's current stream as integers.
-Nothing here runs at import time; a build or load failure raises.
+Nothing here runs at import time; a build or load failure raises. Each
+source has its own lock, so threads build different sources in parallel.
+``griffin_lim_fused.cu`` uses a cooperative grid sync and needs no extra
+flag (no ``-rdc``): the barrier is implemented in the CUDA 12 headers.
 """
 
 from __future__ import annotations
@@ -28,8 +31,11 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# shared memory one block may use on Hopper (dynamic, above 48 KB opted in)
+SMEM_LIMIT_BYTES = 232_448
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # per source: seconds the nvcc call took (0.0 when an earlier build was
 # reused) and the compiler's -Xptxas -v report (registers, shared memory)
@@ -50,7 +56,9 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib

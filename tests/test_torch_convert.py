@@ -129,6 +129,59 @@ def test_convert_with_jax_dictionary(corpus, cfg, tmp_path):
     _assert_same_conversion(got, ref)
 
 
+def test_fused_path_matches_jax(corpus, cfg, tmp_path):
+    """The opt-in fused path as a whole: the single-kernel MU solve, Y = H·B
+    and the fused (center=False) Griffin-Lim, then the centered ISTFT, JAX
+    (Pallas kernels in interpret mode) against the port (the twins on the
+    CPU), on the same X, A, B and seed phases; the dictionary is the JAX
+    package's, carried over with ``from_jax_artifacts``. Tolerance: 1e-3
+    relative L2 on the converted magnitude and the audio, float32 rounding
+    through 20 MU steps and 5 GL iterations (as the default path's test)."""
+    import jax.numpy as jnp
+
+    from exemplars_vc_tpu.dsp.griffin_lim_pallas import gl_angles_fused as jgl_fused
+    from exemplars_vc_tpu.dsp.stft import istft as jistft
+    from exemplars_vc_tpu.factorize.nmf import convert_features as jconvert_features
+    from exemplars_vc_tpu.factorize.nmf_pallas import nmf_activations_pallas
+    from exemplars_vc_tpu.io.wav import read_wav
+    from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import gl_angles_fused
+    from exemplars_vc_tpu_torch.dsp.stft import istft
+    from exemplars_vc_tpu_torch.factorize.nmf import convert_features, nmf_activations
+    from exemplars_vc_tpu_torch.pipelines.conv_dicts import extract_stft_complex
+
+    data, src, _ = corpus
+    jstore = ArtifactStore(str(tmp_path / "j"))
+    jmake_dictionary(cfg, jstore, data, nb_file=3)
+    tstore = ArtifactStore(str(tmp_path / "t"))
+    art = from_jax_artifacts(jstore.load("exemplar_dict_SF12TF1_mfcc_3"), "cpu")
+    tstore.save("exemplar_dict_SF12TF1_mfcc_3_torch", **art.to_numpy())
+    dicts, _ = tconvert._aligned_dicts(cfg, tstore, data, 3, torch.device("cpu"))
+    A, B = dicts["stft"]
+    x, _ = read_wav(src)
+    S = extract_stft_complex(x, cfg, "cpu")
+    X = torch.abs(S)
+    ang0 = torch.where(X > 0, S / torch.clamp(X, min=1e-16),
+                       torch.ones((), dtype=torch.complex64))
+    n_fft, hop, iters = cfg.mcep.frame_length, cfg.mcep.hop_length, 5
+
+    ref = nmf_activations_pallas(jnp.asarray(X.numpy()), jnp.asarray(A.numpy()),
+                                 tol=cfg.nmf.tol, max_iter=cfg.nmf.max_iter, tile_f=8,
+                                 tile_k=128, interpret=True, fused=True)
+    Yj = jconvert_features(ref.H, jnp.asarray(B.numpy()))
+    angj = jgl_fused(Yj, jnp.asarray(ang0.numpy()), n_fft, hop, iters, 0.9, interpret=True)
+    yj = np.asarray(jistft(Yj * angj, n_fft=n_fft, hop_length=hop, length=len(x)))
+
+    st = nmf_activations(X, A, tol=cfg.nmf.tol, max_iter=cfg.nmf.max_iter, fused=True)
+    Y = convert_features(st.H, B)
+    ang = gl_angles_fused(Y, ang0, n_fft, hop, iters, 0.9)
+    y = istft(Y * ang, n_fft=n_fft, hop_length=hop, length=len(x)).numpy()
+
+    assert st.n_iter == int(ref.n_iter)
+    assert _rel_l2(Y.numpy(), np.asarray(Yj)) < 1e-3
+    assert y.shape == x.shape and np.isfinite(y).all()
+    assert _rel_l2(y, yj) < 1e-3
+
+
 @pytest.mark.parametrize("override", [
     "nmf.context_frames=2", "nmf.h_smooth=1", "nmf.solve_domain=mel",
     "nmf.normalize_exemplars=true", "nmf.prune_topk=4", "nmf.activation_power=1.5",

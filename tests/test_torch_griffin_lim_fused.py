@@ -1,0 +1,121 @@
+"""The port's fused Griffin-Lim (``dsp/griffin_lim_cuda.py``) against the JAX
+reference ``dsp/griffin_lim_pallas.py`` (its kernel run in interpret mode, as
+``tests/test_pallas_kernels.py`` runs it), on seeded numpy inputs. On the
+CPU ``gl_angles_fused`` runs its plain twin; the CUDA kernel is held to the
+twin in ``test_torch_kernels_cuda.py``.
+
+Tolerances: the basis builders are copies and must be bit-equal when given
+the same window (the port's float64-built window and JAX's float32 one
+differ by ≤ 2.4e-7, float32 cos implementations); phases agree within
+rtol 1e-4, atol 1e-5 after 6 iterations (float32 matmuls in another order,
+amplified by the normalisation), the projection within the
+``test_gl_pallas_projection_matches_istft_stft`` tolerance, and quality by
+the spectral-convergence rule of ``test_gl_pallas_quality_parity_with_xla_gl``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import exemplars_vc_tpu.dsp.griffin_lim_pallas as jglp
+from exemplars_vc_tpu.dsp.fft import _irdft_mats as j_irdft_mats
+from exemplars_vc_tpu.dsp.fft import _rdft_mats as j_rdft_mats
+from exemplars_vc_tpu_torch.dsp import griffin_lim_cuda as tglc
+from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
+from exemplars_vc_tpu_torch.dsp.stft import istft, stft
+from exemplars_vc_tpu_torch.dsp.windows import get_window
+
+
+def _inputs(seed, F, n_fft, zero_rows=()):
+    rng = np.random.default_rng(seed)
+    nb = n_fft // 2 + 1
+    mag = np.abs(rng.standard_normal((F, nb))).astype(np.float32)
+    mag[list(zero_rows)] = 0.0
+    ang = np.exp(2j * np.pi * rng.random((F, nb))).astype(np.complex64)
+    return mag, ang
+
+
+@pytest.mark.parametrize("n_fft,hop", [(32, 8), (64, 16), (400, 80)])
+def test_basis_copies_bit_equal(monkeypatch, n_fft, hop):
+    np.testing.assert_array_equal(tglc._rdft_mats(n_fft)[0], j_rdft_mats(n_fft)[0])
+    np.testing.assert_array_equal(tglc._rdft_mats(n_fft)[1], j_rdft_mats(n_fft)[1])
+    np.testing.assert_array_equal(tglc._irdft_mats(n_fft)[0], j_irdft_mats(n_fft)[0])
+    np.testing.assert_array_equal(tglc._irdft_mats(n_fft)[1], j_irdft_mats(n_fft)[1])
+    # hand the JAX builders the port's window; the builders must then agree
+    monkeypatch.setattr(jglp, "get_window",
+                        lambda name, n, periodic=True, dtype=None: get_window(name, n).numpy())
+    for got, ref in zip(tglc._gl_mats(n_fft, hop, "hann"),
+                        jglp._gl_mats.__wrapped__(n_fft, hop, "hann")):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+    for F in (1, 12, 688):
+        np.testing.assert_array_equal(tglc._inv_wsum(F, n_fft, hop, "hann"),
+                                      jglp._inv_wsum.__wrapped__(F, n_fft, hop, "hann"))
+
+
+@pytest.mark.parametrize("zero_rows", [(), (0, 5, 11)])
+def test_fused_twin_matches_pallas_interpret(zero_rows):
+    F, n_fft, hop = 12, 32, 8
+    mag, ang = _inputs(5, F, n_fft, zero_rows)
+    ref = jglp.gl_angles_fused(jnp.asarray(mag), jnp.asarray(ang), n_fft, hop, n_iter=6,
+                               momentum=0.9, interpret=True)
+    before = tglc.gl_angles_fused.launches
+    got = tglc.gl_angles_fused(torch.as_tensor(mag), torch.as_tensor(ang), n_fft, hop,
+                               n_iter=6, momentum=0.9)
+    assert got.dtype == torch.complex64 and got.shape == (F, n_fft // 2 + 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+    # the kernel wrapper was not entered: a CPU tensor takes the twin
+    assert tglc.gl_angles_fused.launches == before
+
+
+def test_projection_matches_istft_stft_and_jax():
+    rng = np.random.default_rng(6)
+    F, n_fft, hop = 10, 40, 8
+    nb = n_fft // 2 + 1
+    spec = (rng.standard_normal((F, nb)) + 1j * rng.standard_normal((F, nb))
+            ).astype(np.complex64)
+    got = tglc.project_nocenter_reference(torch.as_tensor(spec), n_fft, hop)
+    t = torch.as_tensor(spec)
+    ref = stft(istft(t, n_fft=n_fft, hop_length=hop, center=False), n_fft=n_fft,
+               hop_length=hop, center=False)[:F]
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-3, atol=1e-4)
+    jref = jglp.project_nocenter_reference(jnp.asarray(spec), n_fft, hop)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=1e-4, atol=1e-5)
+
+
+def test_shape_guard():
+    assert tglc.supports(688, 400, 80)
+    assert not tglc.supports(688, 400, 0)
+    assert not tglc.supports(688, 400, 96)      # 400 % 96 != 0
+    mag, ang = _inputs(1, 8, 400)
+    for hop in (96, 0):
+        with pytest.raises(ValueError, match="hop must divide n_fft"):
+            tglc.gl_angles_fused(torch.as_tensor(mag), torch.as_tensor(ang), 400, hop, 2, 0.9)
+    with pytest.raises(ValueError, match="n_fft//2"):
+        tglc.gl_angles_fused(torch.as_tensor(mag[:, :-1]), torch.as_tensor(ang[:, :-1]),
+                             400, 80, 2, 0.9)
+    with pytest.raises(ValueError, match="complex"):
+        tglc.gl_angles_fused(torch.as_tensor(mag), torch.as_tensor(mag), 400, 80, 2, 0.9)
+
+
+def test_quality_parity_with_production_griffin_lim():
+    """Phases from the fused twin reconstruct the magnitude as well as the
+    port's production (center=True) ``griffin_lim`` at the same budget."""
+    rng = np.random.default_rng(7)
+    n_fft, hop = 64, 16
+    t = np.arange(4096) / 16000.0
+    x = np.sin(2 * np.pi * 220 * t) + 0.4 * np.sin(2 * np.pi * 440 * t)
+    mag = torch.abs(stft(torch.as_tensor(x, dtype=torch.float32), n_fft=n_fft, hop_length=hop))
+    F = mag.shape[0]
+    ang0 = torch.as_tensor(np.exp(2j * np.pi * rng.random(tuple(mag.shape))).astype(np.complex64))
+
+    def sc(y):
+        m = torch.abs(stft(y, n_fft=n_fft, hop_length=hop))[:F]
+        return float(torch.linalg.norm(m - mag) / torch.linalg.norm(mag))
+
+    y_x = griffin_lim(mag, n_fft=n_fft, hop_length=hop, n_iter=30, momentum=0.9,
+                      init_phase=ang0)
+    a_p = tglc.gl_angles_fused(mag, ang0, n_fft, hop, n_iter=30, momentum=0.9)
+    y_p = istft(mag * a_p, n_fft=n_fft, hop_length=hop)
+    assert torch.isfinite(y_p).all()
+    assert sc(y_p) < 1.3 * sc(y_x) + 0.02, (sc(y_p), sc(y_x))

@@ -144,3 +144,50 @@ def test_matches_sklearn(beta):
     tol = 5e-3 if beta == "frobenius" else 1e-2
     np.testing.assert_allclose(got.H.double().numpy() @ A, W @ A, rtol=tol, atol=tol)
     assert abs(got.n_iter - n_ref) <= 10
+
+
+# ---------------------------------------------------------------------------
+# the single-kernel MU iteration (fused=True), against the Pallas fused
+# kernel in interpret mode at the shapes tests/test_pallas_kernels.py uses:
+# the same tolerance as the two-kernel twins (rtol 1e-4)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tol,max_iter", [(0.0, 30), (1e-2, 150)])
+def test_fused_matches_pallas_fused(tol, max_iter):
+    X, A = _problem(3, F=16, K=256, D=25)
+    ref = nmf_activations_pallas(jnp.asarray(X), jnp.asarray(A), tol=tol, max_iter=max_iter,
+                                 tile_f=8, tile_k=128, interpret=True, fused=True)
+    got = nmf_activations(*_t(X, A), tol=tol, max_iter=max_iter, fused=True)
+    assert got.n_iter == int(ref.n_iter)
+    if tol > 0:
+        assert got.n_iter < max_iter      # the tol cadence stopped the solve
+    np.testing.assert_allclose(got.H.numpy(), np.asarray(ref.H), rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(float(got.error), float(ref.error), rtol=1e-4)
+    # the two-kernel path is the same math
+    two = nmf_activations(*_t(X, A), tol=tol, max_iter=max_iter)
+    assert two.n_iter == got.n_iter
+    np.testing.assert_allclose(got.H.numpy(), two.H.numpy(), rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("l1", [0.0, 0.5])
+def test_fused_step_matches_jax_step(l1):
+    # the JAX fused kernel has no l1: hold l1 = 0 and l1 != 0 to the XLA step
+    X, A = _problem(4, pad_rows=10)
+    rng = np.random.default_rng(5)
+    H = rng.uniform(0.0, 0.2, (X.shape[0], A.shape[0])).astype(np.float32)
+    Num = X @ A.T
+    ref = _mu_step_frobenius(jnp.asarray(H), jnp.asarray(X), jnp.asarray(A),
+                             jnp.asarray(Num), l1=l1)
+    Ht, At, Nt = _t(H, A, Num)
+    np.testing.assert_allclose(nmf_cuda.nmf_mu_fused_plain(Ht, At, Nt, l1).numpy(),
+                               np.asarray(ref), rtol=1e-5, atol=1e-8)
+    before = nmf_cuda.nmf_mu_fused.launches
+    out = nmf_cuda.nmf_mu_fused(Ht, At, Nt, l1, out=Ht)
+    assert out is Ht and nmf_cuda.nmf_mu_fused.launches == before   # CPU: the twin
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-8)
+
+
+def test_fused_needs_frobenius():
+    X, A = _problem(6)
+    with pytest.raises(ValueError, match="frobenius"):
+        nmf_activations(*_t(X, A), beta_loss="kullback-leibler", fused=True)
