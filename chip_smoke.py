@@ -17,8 +17,10 @@ Phases (any failure exits non-zero and prints no result line):
    backtrace must be exactly equal (the DP is min/add only); ``nmf_recon``,
    ``nmf_update`` and the one-kernel MU iteration ``nmf_mu_fused`` within a
    relative error max|kernel − plain| / max|plain| of 1e-5 for one call and
-   1e-4 after 10 MU steps (they sum in different orders), the fused MU also
-   timed at K = 115,200; the fused Griffin-Lim ``gl_angles_fused`` after 6
+   1e-4 after 10 MU steps (they sum in different orders), ``nmf_recon`` and
+   the fused MU also at K = 115,200, with the launch plans of the two
+   split-K cluster kernels (grid, cluster, tile, shared bytes, clusters the
+   card holds at once); the fused Griffin-Lim ``gl_angles_fused`` after 6
    iterations within 1e-4 relative L2 of its twin's unit phases and, against
    a float64 run of the twin, a mean phase error no more than twice the
    float32 twin's own (+ 1e-7): float32 rounding alone moves the phase of a
@@ -136,8 +138,8 @@ def phase_kernels(torch, np, dev) -> dict:
     from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import (
         gl_angles_fused, gl_angles_fused_plain, gl_fused_plan, grid_sync_probe)
     from exemplars_vc_tpu_torch.factorize.nmf_cuda import (
-        nmf_mu_fused, nmf_mu_fused_plain, nmf_recon, nmf_recon_plain, nmf_update,
-        nmf_update_plain)
+        co_resident_clusters, nmf_mu_fused, nmf_mu_fused_plain, nmf_mu_fused_plan, nmf_recon,
+        nmf_recon_plain, nmf_recon_plan, nmf_update, nmf_update_plain)
 
     rng = np.random.default_rng(0)
     out = {}
@@ -172,6 +174,16 @@ def phase_kernels(torch, np, dev) -> dict:
 
     # NMF at the main path's shapes
     F, K, D = 688, 7680, 201
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, plan_fn in (("nmf_recon", nmf_recon_plan), ("nmf_mu_fused", nmf_mu_fused_plan)):
+        for k in (K, 115_200):
+            pl = plan_fn(F, k, D, n_sms)
+            ctas = pl["grid"][0] * pl["grid"][1] * pl["grid"][2]
+            say(f"{name} plan at F={F} K={k} D={D}: grid {pl['grid']} = {ctas} CTAs of "
+                f"{pl['threads']} threads, cluster {pl['cluster']}, tile {pl['tile']}, "
+                f"thread tile {pl['thread_tile']}, {pl['stages']}-deep cp.async ring, "
+                f"{pl['smem_bytes']} B shared, K slices {pl['k_bounds'][:3]}..., "
+                f"{co_resident_clusters(name, pl, F, k, D)} clusters at once on {n_sms} SMs")
     A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
     A[K - 300:] = 0.0                                   # inert padding rows
     X = np.abs(rng.standard_normal((F, D))).astype(np.float32)
@@ -224,14 +236,27 @@ def phase_kernels(torch, np, dev) -> dict:
     Ab = torch.as_tensor(np.abs(rng.standard_normal((Kb, D))).astype(np.float32), device=dev)
     Hb = torch.full((F, Kb), 0.01, dtype=torch.float32, device=dev)
     Numb = X @ Ab.T
+    e_rb = rel_err(nmf_recon(Hb, Ab), nmf_recon_plain(Hb, Ab))
     e_b = rel_err(nmf_mu_fused(Hb, Ab, Numb), nmf_mu_fused_plain(Hb, Ab, Numb))
+    Hk, Hp, Hf = Hb.clone(), Hb.clone(), Hb.clone()
+    for _ in range(10):
+        Hk = nmf_update(nmf_recon(Hk, Ab), Ab, Hk, Numb, out=Hk)
+        Hf = nmf_mu_fused(Hf, Ab, Numb, out=Hf)
+        Hp = nmf_mu_fused_plain(Hp, Ab, Numb)
+    e_rb10, e_b10 = rel_err(Hk, Hp), rel_err(Hf, Hp)
+    del Hk, Hp, Hf
+    rb_ms = cuda_ms(lambda: nmf_recon(Hb, Ab), reps=5)
+    rpb_ms = cuda_ms(lambda: nmf_recon_plain(Hb, Ab), reps=5)
     fb_ms = cuda_ms(lambda: nmf_mu_fused(Hb, Ab, Numb), reps=5)
     pb_ms = cuda_ms(lambda: nmf_mu_fused_plain(Hb, Ab, Numb), reps=5)
     tb_ms = cuda_ms(lambda: nmf_update(nmf_recon(Hb, Ab), Ab, Hb, Numb), reps=5)
+    say(f"  K={Kb}: nmf_recon {rb_ms:.4f} ms, plain {rpb_ms:.4f} ms (rel err {e_rb:.3g}, "
+        f"limit 1e-5; recon + update 10 MU steps {e_rb10:.3g}, limit 1e-4)")
     say(f"  one MU iteration at K={Kb}: fused kernel {fb_ms:.4f} ms, nmf_recon + nmf_update "
-        f"{tb_ms:.4f} ms, plain {pb_ms:.4f} ms (rel err {e_b:.3g}, limit 1e-5)")
-    if not e_b <= 1e-5:
-        fail("nmf_mu_fused outside tolerance at K = 115,200")
+        f"{tb_ms:.4f} ms, plain {pb_ms:.4f} ms (rel err {e_b:.3g}, limit 1e-5; 10 MU steps "
+        f"{e_b10:.3g}, limit 1e-4)")
+    if not (e_rb <= 1e-5 and e_b <= 1e-5 and e_rb10 <= 1e-4 and e_b10 <= 1e-4):
+        fail("nmf kernels outside tolerance at K = 115,200")
     del Ab, Hb, Numb
 
     # the fused Griffin-Lim at the main path's shape
@@ -480,7 +505,7 @@ def main() -> None:
     for src in srcs:
         say(f"built {src}.cu in {build.build_seconds[src]:.2f} s")
         for line in build.ptxas_report.get(src, "").splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 say(f"  ptxas: {line.strip()}")
 
     counted = {"dtw_wavefront": dtw_wavefront, "dtw_backtrace": dtw_backtrace,

@@ -14,6 +14,8 @@ Nothing here runs at import time; a build or load failure raises. Each
 source has its own lock, so threads build different sources in parallel.
 ``griffin_lim_fused.cu`` uses a cooperative grid sync and needs no extra
 flag (no ``-rdc``): the barrier is implemented in the CUDA 12 headers.
+``nmf_mu.cu`` launches thread-block clusters (``cudaLaunchKernelEx``) and
+needs none either: ``sm_90a`` has them.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ one. The file imports no jax, so on a machine without jax it runs alone:
 Tolerances: the DTW kernels equal their twins exactly (min/add only); the
 NMF kernels (the fused MU iteration too) sum in another order than cuBLAS,
 so one call agrees within a relative error max|kernel − plain| / max|plain|
-of 1e-5. The fused Griffin-Lim's unit phases after 6 iterations are held
+of 1e-5. The split-K NMF kernels use no atomics, so repeated launches are
+compared for equal bits. The fused Griffin-Lim's unit phases after 6 iterations are held
 to a float64 run of its twin: the kernel's mean phase error may be at most
 twice the float32 twin's own (+ 1e-7), and kernel and twin agree within
 1e-4 relative L2. An element-wise 1e-4 between kernel and twin holds only
@@ -57,8 +58,15 @@ def test_dtw_kernels_equal_twins(cuda, ta, tb):
         assert torch.equal(got, ref)
 
 
+# the edges of the split-K tiling: one row, one row past a 32-row tile, fewer
+# K rows than the split, one K row past a slice boundary, one column, a
+# ragged 128-column tile
+NMF_EDGES = [(1, 130, 25), (689, 7681, 201), (33, 3, 25), (100, 700, 1), (100, 700, 300)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("F,K,D", [(33, 130, 25), (100, 700, 201), (688, 7680, 201)])
+@pytest.mark.parametrize("F,K,D", [(33, 130, 25), (100, 700, 201), (688, 7680, 201),
+                                   *NMF_EDGES])
 def test_nmf_kernels_match_twins(cuda, F, K, D):
     rng = np.random.default_rng(F)
     A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
@@ -91,7 +99,7 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F,K,D", [(33, 130, 25), (100, 700, 201), (13, 1000, 300),
-                                   (688, 7680, 201)])
+                                   (688, 7680, 201), *NMF_EDGES, (13, 700, 6144)])
 def test_nmf_fused_matches_twin(cuda, F, K, D):
     rng = np.random.default_rng(F + K)
     A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
@@ -110,6 +118,60 @@ def test_nmf_fused_matches_twin(cuda, F, K, D):
     Hin = H.clone()
     out = nmf_cuda.nmf_mu_fused(Hin, A, Num, out=Hin)
     assert out is Hin and _rel(Hin, nmf_cuda.nmf_mu_fused_plain(H, A, Num)) <= 1e-5
+
+
+def _nmf_inputs(F, K, D, device):
+    rng = np.random.default_rng(K)
+    A = torch.as_tensor(np.abs(rng.standard_normal((K, D))).astype(np.float32), device=device)
+    X = torch.as_tensor(np.abs(rng.standard_normal((F, D))).astype(np.float32), device=device)
+    H = torch.as_tensor(rng.uniform(0, 0.05, (F, K)).astype(np.float32), device=device)
+    return A, H, X @ A.T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,K,D", [(688, 7680, 201), (689, 7681, 300)])
+def test_nmf_split_k_kernels_are_deterministic(cuda, F, K, D):
+    """No atomics: repeated launches give equal bits, and the fused iteration
+    equals recon + update bit for bit (both sum P over the same K slices)."""
+    A, H, Num = _nmf_inputs(F, K, D, cuda)
+    assert torch.equal(nmf_cuda.nmf_recon(H, A), nmf_cuda.nmf_recon(H, A))
+    got = nmf_cuda.nmf_mu_fused(H, A, Num, 0.3)
+    assert torch.equal(got, nmf_cuda.nmf_mu_fused(H, A, Num, 0.3))
+    assert torch.equal(got, nmf_cuda.nmf_update(nmf_cuda.nmf_recon(H, A), A, H, Num, 0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["nmf_recon", "nmf_mu_fused"])
+@pytest.mark.parametrize("fault", ["cluster", "smem", "tile"])
+def test_nmf_plan_that_cannot_launch_raises(cuda, kernel, fault):
+    """A cluster above the portable 8, shared memory above the opt-in limit or
+    a tile the source does not compile is refused before any launch."""
+    F, K, D = 100, 700, 201
+    A, H, Num = _nmf_inputs(F, K, D, cuda)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if kernel == "nmf_recon":
+        plan = nmf_cuda.nmf_recon_plan(F, K, D, n_sms)
+    else:
+        plan = nmf_cuda.nmf_mu_fused_plan(F, K, D, n_sms)
+    if fault == "cluster":
+        plan = dict(plan, split=9, cluster=(9, 1, 1), grid=(9, *plan["grid"][1:]),
+                    k_bounds=tuple(range(0, 9 * 64, 64)) + (K,))
+    elif fault == "smem":
+        plan = dict(plan, smem_bytes=nmf_cuda.SMEM_LIMIT_BYTES + 1024)
+    else:
+        plan = dict(plan, tile=(24, plan["tile"][1]))
+    fn = getattr(nmf_cuda, kernel)
+    before = fn.launches
+    out = torch.full_like(H, -1.0)
+    with pytest.raises((ValueError, RuntimeError)):
+        if kernel == "nmf_recon":
+            nmf_cuda.nmf_recon(H, A, plan=plan)
+        else:
+            nmf_cuda.nmf_mu_fused(H, A, Num, out=out, plan=plan)
+    torch.cuda.synchronize()
+    assert fn.launches == before and bool((out == -1.0).all())
+    with pytest.raises(RuntimeError):
+        nmf_cuda.co_resident_clusters(kernel, plan, F, K, D)
 
 
 @pytest.mark.cuda
