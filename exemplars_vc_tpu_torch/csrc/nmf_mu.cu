@@ -45,21 +45,33 @@
 // kernel; a split of 5 (110 CTAs) was 5 % faster for nmf_recon and 25-30 %
 // for the fused kernel.
 //
+// nmf_update has no split: K is its output axis and D = 201 a short
+// reduction. A 64 x 128 (F x K) tile per CTA of 256 threads, each thread the
+// same 8 x 4 register tile, both operands staged d-major by the same
+// cp.async ring (ha_accumulate, its second operand read transposed), so a d
+// step costs three float4 shared loads for 32 FMAs; at most 128 registers,
+// so two CTAs share an SM and one's FMAs cover the other's epilogue and
+// waits. The epilogue reads H and Num and writes out as float4 where K % 4
+// == 0 and the pointers are 16-byte aligned (a warp's 8 lanes along K cover
+// 128 contiguous bytes of a row), else element by element, with the same
+// arithmetic. What bounds it now (same card): the FMA pipe, at about 42 %
+// of the fp32 peak with two CTAs an SM (30 % with one), and at K = 7680 the
+// last of three waves of 264 CTAs, half full.
+//
 // The C entries refuse, before launching, a plan that does not match the
 // compiled tiling or cannot launch (cluster above 8, shared memory above
-// the opt-in limit, no cluster that fits an SM group), and return the
+// the opt-in limit, no cluster or CTA that fits an SM), and return the
 // cudaError_t; the Python wrappers raise.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
 #include <mutex>
 
 namespace cg = cooperative_groups;
 
-#define EVC_TILE 32
-#define EVC_THREADS 256
 #define EVC_EPS 2.220446049250313e-16f
 
 #define EVC_TM 8              // register tile: rows (F) of a thread
@@ -72,6 +84,10 @@ namespace cg = cooperative_groups;
 #define EVC_RECON_NS 4        // nmf_recon's cp.async ring depth
 #define EVC_FUSED_BN 256      // fused: phase-1 column chunk, phase-2 K pass
 #define EVC_FUSED_AS (EVC_FUSED_BN + 4)  // row stride of the d-major A stage
+#define EVC_UPDATE_BM 64      // nmf_update output tile (F x K)
+#define EVC_UPDATE_BN 128
+#define EVC_UPDATE_NS 4       // nmf_update's cp.async ring depth
+#define EVC_UPDATE_MINB 2     // nmf_update CTAs an SM (caps registers at 128)
 
 // K slice bounds of the CTAs of one cluster: rank r reduces [b[r], b[r + 1])
 struct EvcKSlices {
@@ -125,16 +141,19 @@ __device__ __forceinline__ void fma_tile(float (&acc)[EVC_TM][EVC_TN], const flo
 // A BM x BN output tile on BM/8 x BN/4 threads; thread (ty, tx) owns rows
 // ty*8 .. ty*8+7 and columns tx*4 .. tx*4+3. A warp covers LY x LX threads
 // (4 x 8 where the tile is tall enough), so a k step's float4 shared loads
-// touch LY distinct H rows and LX distinct A quads.
-template <int BM, int BN>
+// touch LY distinct X rows and LX distinct Y quads. YT: the second operand
+// is stored transposed and staged through a padded stride (see
+// ha_accumulate).
+template <int BM, int BN, bool YT = false>
 struct HaTile {
   static constexpr int NX = BN / EVC_TN;
   static constexpr int NY = BM / EVC_TM;
   static constexpr int NT = NX * NY;
   static constexpr int LY = NY % 4 == 0 ? 4 : (NY % 2 == 0 ? 2 : 1);
   static constexpr int LX = 32 / LY;
-  static constexpr int HS = BM + 4;                // row stride of the k-major H stage
-  static constexpr int STAGE = EVC_BK * (HS + BN); // floats of one stage: H, then A
+  static constexpr int HS = BM + 4;                // row stride of the k-major X stage
+  static constexpr int AS = YT ? BN + 4 : BN;      // row stride of the k-major Y stage
+  static constexpr int STAGE = EVC_BK * (HS + AS); // floats of one stage: X, then Y
   static_assert(BM % EVC_TM == 0 && BN % EVC_TN == 0, "whole register tiles");
   static_assert(NX % LX == 0 && NT % 32 == 0, "whole warps");
   static __device__ __forceinline__ void yx(int tid, int& ty, int& tx) {
@@ -144,26 +163,30 @@ struct HaTile {
   }
 };
 
-// acc += H[row0 : row0 + BM, k_lo : k_hi] . A[k_lo : k_hi, col0 : col0 + BN],
+// acc += X[row0 : row0 + BM, k_lo : k_hi] . Y[k_lo : k_hi, col0 : col0 + BN],
 // every element summed with one fmaf per k in ascending k from acc's value.
-// Rows >= F, k >= k_hi and columns >= D are staged as zeros, which leave the
-// sums unchanged. `stage` is a ring of NS stages (NS * STAGE floats): NS - 1
+// X is (F, K) row-major; Y is (K, C) row-major, or with YT its transpose
+// (C, K) row-major (nmf_update's A^T). Rows >= F, k >= k_hi and columns >= C
+// are staged as zeros, which leave the sums unchanged. Both operands are
+// staged k-major, so a k step reads float4s; a transposed operand is
+// gathered along k (a warp reads 16 consecutive k of two rows) into a stride
+// of BN + 4. `stage` is a ring of NS stages (NS * STAGE floats): NS - 1
 // slices are in flight while one computes, one barrier a slice. The function
 // ends behind a barrier, so the caller may reuse the ring at once.
-template <int BM, int BN, int NS>
-__device__ __forceinline__ void ha_accumulate(const float* H, const float* __restrict__ A,
-                                              int F, int K, int D, int row0, int col0, int k_lo,
+template <int BM, int BN, int NS, bool YT = false>
+__device__ __forceinline__ void ha_accumulate(const float* X, const float* __restrict__ Y,
+                                              int F, int K, int C, int row0, int col0, int k_lo,
                                               int k_hi, float* stage,
                                               float (&acc)[EVC_TM][EVC_TN]) {
-  using T = HaTile<BM, BN>;
+  using T = HaTile<BM, BN, YT>;
   constexpr int NH = BM * EVC_BK, NA = BN * EVC_BK;
   const int tid = threadIdx.x;
   int ty, tx;
   T::yx(tid, ty, tx);
   const int n_steps = (k_hi - k_lo + EVC_BK - 1) / EVC_BK;
   auto load = [&](int buf, int k0) {
-    float* Hs = stage + buf * T::STAGE;   // [BK][HS]: H transposed, k-major
-    float* As = Hs + EVC_BK * T::HS;      // [BK][BN]
+    float* Hs = stage + buf * T::STAGE;   // [BK][HS]: X transposed, k-major
+    float* As = Hs + EVC_BK * T::HS;      // [BK][AS]
 #pragma unroll
     for (int i = 0; i < (NH + T::NT - 1) / T::NT; ++i) {
       const int e = tid + i * T::NT;
@@ -171,17 +194,24 @@ __device__ __forceinline__ void ha_accumulate(const float* H, const float* __res
         const int m = e / EVC_BK, kk = e % EVC_BK;   // a warp reads along k: coalesced
         const int f = row0 + m, k = k0 + kk;
         const bool ok = f < F && k < k_hi;
-        cp_async_f32(Hs + kk * T::HS + m, ok ? H + (size_t)f * K + k : H, ok);
+        cp_async_f32(Hs + kk * T::HS + m, ok ? X + (size_t)f * K + k : X, ok);
       }
     }
 #pragma unroll
     for (int i = 0; i < (NA + T::NT - 1) / T::NT; ++i) {
       const int e = tid + i * T::NT;
       if (NA % T::NT == 0 || e < NA) {
-        const int kk = e / BN, n = e % BN;
-        const int k = k0 + kk, d = col0 + n;
-        const bool ok = k < k_hi && d < D;
-        cp_async_f32(As + kk * BN + n, ok ? A + (size_t)k * D + d : A, ok);
+        if constexpr (YT) {
+          const int n = e / EVC_BK, kk = e % EVC_BK;   // along k, as X
+          const int k = k0 + kk, c = col0 + n;
+          const bool ok = k < k_hi && c < C;
+          cp_async_f32(As + kk * T::AS + n, ok ? Y + (size_t)c * K + k : Y, ok);
+        } else {
+          const int kk = e / BN, n = e % BN;
+          const int k = k0 + kk, c = col0 + n;
+          const bool ok = k < k_hi && c < C;
+          cp_async_f32(As + kk * BN + n, ok ? Y + (size_t)k * C + c : Y, ok);
+        }
       }
     }
   };
@@ -201,7 +231,7 @@ __device__ __forceinline__ void ha_accumulate(const float* H, const float* __res
     for (int kk = 0; kk < EVC_BK; ++kk) {
       const float4 h0 = *reinterpret_cast<const float4*>(Hs + kk * T::HS + ty * EVC_TM);
       const float4 h1 = *reinterpret_cast<const float4*>(Hs + kk * T::HS + ty * EVC_TM + 4);
-      const float4 a = *reinterpret_cast<const float4*>(As + kk * BN + tx * EVC_TN);
+      const float4 a = *reinterpret_cast<const float4*>(As + kk * T::AS + tx * EVC_TN);
       fma_tile(acc, h0, h1, a);
     }
   }
@@ -281,49 +311,67 @@ nmf_recon_kernel(const float* __restrict__ H, const float* __restrict__ A,
   cluster.sync();   // peers have read this CTA's partial
 }
 
-// H and out may alias (in-place update), so neither is __restrict__.
-__global__ void nmf_update_kernel(const float* __restrict__ P, const float* __restrict__ A,
-                                  const float* H, const float* __restrict__ Num,
-                                  float* out, int F, int K, int D, float l1) {
-  __shared__ float Ps[EVC_TILE][EVC_TILE + 1];  // [f][d]
-  __shared__ float As[EVC_TILE][EVC_TILE + 1];  // [k][d]
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * EVC_TILE;  // F
-  const int col0 = blockIdx.x * EVC_TILE;  // K
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int d0 = 0; d0 < D; d0 += EVC_TILE) {
-    for (int e = threadIdx.x; e < EVC_TILE * EVC_TILE; e += EVC_THREADS) {
-      const int r = e / EVC_TILE, c = e % EVC_TILE;
-      const int d = d0 + c;
-      const int pf = row0 + r;
-      Ps[r][c] = (pf < F && d < D) ? P[(size_t)pf * D + d] : 0.f;
-      const int ak = col0 + r;
-      As[r][c] = (ak < K && d < D) ? A[(size_t)ak * D + d] : 0.f;
+// ---------------------------------------------------------------------------
+// nmf_update: out = H * (Num / den), den = P.A^T + l1, den == 0 -> EPS.
+//
+// Replaces _update_kernel (nmf_pallas.py:43). A 64 x 128 (F x K) tile per
+// CTA: 11 x 60 = 660 CTAs of 8 warps at F = 688, K = 7680, two an SM. Each
+// thread sums its 8 x 4 outputs over d ascending from 0.0f with one fmaf per
+// d (ha_accumulate: P staged d-major as nmf_recon stages H, A transposed to
+// d-major as the fused kernel's phase 2 stages it, 16 d a slice, three
+// slices in flight), the order of the fused kernel's phase 2, so the fused
+// iteration equals recon + update bit for bit; the zero rows at d >= D leave
+// the sums unchanged. Three float4 shared loads feed 32 FMAs, loads stay in
+// flight during the FMAs, D = 201 pads only to 208, and a warp stores 128
+// contiguous bytes a row: 2.2x the 32 x 32, 2 x 2-a-thread tiling this
+// replaced. D has no limit: only BK columns of P and A are in shared memory
+// at a time. Now it runs at about
+// 42 % of the card's fp32 FMA peak at K = 115,200; at K = 7680 its 660 CTAs
+// take three waves of 264, the last one half full. Loading H and Num
+// before the last slices (so they land under the FMAs) was slower.
+// ---------------------------------------------------------------------------
+
+using UpdateTile = HaTile<EVC_UPDATE_BM, EVC_UPDATE_BN, true>;
+
+// H and out may alias (in-place update), so neither is __restrict__: each
+// element is read, then written, by one thread.
+__global__ void __launch_bounds__(UpdateTile::NT, EVC_UPDATE_MINB)
+nmf_update_kernel(const float* __restrict__ P, const float* __restrict__ A, const float* H,
+                  const float* __restrict__ Num, float* out, int F, int K, int D, float l1) {
+  using T = UpdateTile;
+  extern __shared__ float4 evc_smem4[];
+  const int row0 = blockIdx.y * EVC_UPDATE_BM, col0 = blockIdx.x * EVC_UPDATE_BN;
+  float acc[EVC_TM][EVC_TN] = {};
+  ha_accumulate<EVC_UPDATE_BM, EVC_UPDATE_BN, EVC_UPDATE_NS, true>(
+      P, A, F, D, K, row0, col0, 0, D, reinterpret_cast<float*>(evc_smem4), acc);
+  int ty, tx;
+  T::yx(threadIdx.x, ty, tx);
+  const int k0 = col0 + tx * EVC_TN;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(H) | reinterpret_cast<uintptr_t>(Num) |
+                         reinterpret_cast<uintptr_t>(out);
+  const bool vec = K % 4 == 0 && ptrs % 16 == 0;
+  if (k0 >= K) return;
+#pragma unroll
+  for (int i = 0; i < EVC_TM; ++i) {
+    const int f = row0 + ty * EVC_TM + i;
+    if (f >= F) break;
+    float den[EVC_TN];
+#pragma unroll
+    for (int j = 0; j < EVC_TN; ++j) {
+      den[j] = acc[i][j] + l1;
+      den[j] = (den[j] == 0.f) ? EVC_EPS : den[j];
     }
-    __syncthreads();
+    const size_t idx = (size_t)f * K + k0;
+    if (vec) {   // k0 + 3 < K too: K and k0 are multiples of 4
+      const float4 h = *reinterpret_cast<const float4*>(H + idx);
+      const float4 n = *reinterpret_cast<const float4*>(Num + idx);
+      *reinterpret_cast<float4*>(out + idx) =
+          make_float4(h.x * (n.x / den[0]), h.y * (n.y / den[1]), h.z * (n.z / den[2]),
+                      h.w * (n.w / den[3]));
+    } else {
 #pragma unroll
-    for (int dd = 0; dd < EVC_TILE; ++dd) {
-      const float p0 = Ps[ty][dd], p1 = Ps[ty + 16][dd];
-      const float a0 = As[tx][dd], a1 = As[tx + 16][dd];
-      acc[0][0] = fmaf(p0, a0, acc[0][0]);
-      acc[0][1] = fmaf(p0, a1, acc[0][1]);
-      acc[1][0] = fmaf(p1, a0, acc[1][0]);
-      acc[1][1] = fmaf(p1, a1, acc[1][1]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int f = row0 + ty + 16 * r, k = col0 + tx + 16 * c;
-      if (f < F && k < K) {
-        float den = acc[r][c] + l1;
-        den = (den == 0.f) ? EVC_EPS : den;
-        const size_t idx = (size_t)f * K + k;
-        out[idx] = H[idx] * (Num[idx] / den);
-      }
+      for (int j = 0; j < EVC_TN; ++j)
+        if (k0 + j < K) out[idx + j] = H[idx + j] * (Num[idx + j] / den[j]);
     }
   }
 }
@@ -484,34 +532,38 @@ struct EvcMemo {
 // more shared memory than a block may opt into or for a cluster that no SM
 // group can hold (cudaErrorInvalidConfiguration); otherwise fill the launch
 // configuration, put the number of clusters the card holds at once in
-// *clusters and return 0. Nothing is launched here.
+// *clusters and return 0. Nothing is launched here. ks == nullptr: a launch
+// without a cluster (split 1, the slices unused), whose clusters of one CTA
+// are counted as CTAs an SM times the SMs.
 template <typename Kern>
 static int evc_check_plan(Kern kernel, EvcMemo& memo, const EvcPlan* p, int K, int bm, int bn,
                           int threads, int stages, dim3 grid, size_t smem_need,
                           cudaStream_t stream, cudaLaunchAttribute* attr,
                           cudaLaunchConfig_t* cfg, EvcKSlices* ks, int* clusters) {
-  if (p->split < 1 || p->split > EVC_MAX_SPLIT) return (int)cudaErrorInvalidClusterSize;
+  if (p->split < 1 || p->split > (ks ? EVC_MAX_SPLIT : 1)) return (int)cudaErrorInvalidClusterSize;
   if (p->smem_bytes > EVC_SMEM_LIMIT) return (int)cudaErrorInvalidConfiguration;
   if (p->bm != bm || p->bn != bn || p->threads != threads || p->stages != stages ||
       p->grid_x != (int)grid.x || p->grid_y != (int)grid.y || p->grid_z != (int)grid.z ||
       (size_t)p->smem_bytes < smem_need)
     return (int)cudaErrorInvalidValue;
-  if (p->k_bounds[0] != 0 || p->k_bounds[p->split] != K) return (int)cudaErrorInvalidValue;
-  for (int s = 0; s <= EVC_MAX_SPLIT; ++s) {
-    if (s < p->split && p->k_bounds[s + 1] < p->k_bounds[s]) return (int)cudaErrorInvalidValue;
-    ks->b[s] = s <= p->split ? p->k_bounds[s] : K;
+  if (ks) {
+    if (p->k_bounds[0] != 0 || p->k_bounds[p->split] != K) return (int)cudaErrorInvalidValue;
+    for (int s = 0; s <= EVC_MAX_SPLIT; ++s) {
+      if (s < p->split && p->k_bounds[s + 1] < p->k_bounds[s]) return (int)cudaErrorInvalidValue;
+      ks->b[s] = s <= p->split ? p->k_bounds[s] : K;
+    }
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = p->split;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
   }
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = p->split;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = grid;
   cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = (size_t)p->smem_bytes;
   cfg->stream = stream;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
+  cfg->attrs = ks ? attr : nullptr;
+  cfg->numAttrs = ks ? 1 : 0;
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
@@ -524,7 +576,15 @@ static int evc_check_plan(Kern kernel, EvcMemo& memo, const EvcPlan* p, int K, i
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p->smem_bytes);
   if (e != cudaSuccess) return (int)e;
   *clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(clusters, kernel, cfg);
+  if (ks) {
+    e = cudaOccupancyMaxActiveClusters(clusters, kernel, cfg);
+  } else {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      (size_t)p->smem_bytes);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    *clusters = per_sm * sms;
+  }
   if (e != cudaSuccess) return (int)e;
   if (*clusters < 1) return (int)cudaErrorInvalidConfiguration;
   memo.valid = true;
@@ -553,6 +613,26 @@ static int evc_recon(const float* H, const float* A, float* P, int F, int K, int
                                query ? query : &clusters);
   if (e != 0 || query) return e;
   const cudaError_t le = cudaLaunchKernelEx(&cfg, nmf_recon_kernel, H, A, P, F, K, D, ks);
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}
+
+static int evc_update(const float* P, const float* A, const float* H, const float* Num,
+                      float* out, int F, int K, int D, float l1, const EvcPlan* p,
+                      cudaStream_t stream, int* query) {
+  using T = UpdateTile;
+  static EvcMemo memo;
+  const dim3 grid((K + EVC_UPDATE_BN - 1) / EVC_UPDATE_BN,
+                  (F + EVC_UPDATE_BM - 1) / EVC_UPDATE_BM, 1);
+  const size_t need = sizeof(float) * EVC_UPDATE_NS * T::STAGE;
+  cudaLaunchConfig_t cfg;
+  int ctas = 0;
+  const int e = evc_check_plan(nmf_update_kernel, memo, p, K, EVC_UPDATE_BM, EVC_UPDATE_BN,
+                               T::NT, EVC_UPDATE_NS, grid, need, stream, nullptr, &cfg, nullptr,
+                               query ? query : &ctas);
+  if (e != 0 || query) return e;
+  const cudaError_t le =
+      cudaLaunchKernelEx(&cfg, nmf_update_kernel, P, A, H, Num, out, F, K, D, l1);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
@@ -610,11 +690,15 @@ int evc_nmf_recon_clusters(int F, int K, int D, const EvcPlan* plan, int* cluste
 }
 
 int evc_nmf_update(const float* P, const float* A, const float* H, const float* Num,
-                   float* out, int F, int K, int D, float l1, void* stream) {
-  const dim3 grid((K + EVC_TILE - 1) / EVC_TILE, (F + EVC_TILE - 1) / EVC_TILE);
-  nmf_update_kernel<<<grid, EVC_THREADS, 0, (cudaStream_t)stream>>>(P, A, H, Num, out,
-                                                                   F, K, D, l1);
-  return (int)cudaGetLastError();
+                   float* out, int F, int K, int D, float l1, const EvcPlan* plan, void* stream) {
+  return evc_update(P, A, H, Num, out, F, K, D, l1, plan, (cudaStream_t)stream, nullptr);
+}
+
+// How many CTAs of the plan the card holds at once (no cluster: each CTA is
+// a cluster of one).
+int evc_nmf_update_clusters(int F, int K, int D, const EvcPlan* plan, int* clusters) {
+  return evc_update(nullptr, nullptr, nullptr, nullptr, nullptr, F, K, D, 0.f, plan, nullptr,
+                    clusters);
 }
 
 int evc_nmf_fused_mu(const float* H, const float* A, const float* Num, float* out, int F,

@@ -13,8 +13,11 @@ are pure functions of the shape and the card's SM count: the CTA tile, the
 split (CTAs per cluster, one contiguous K slice each), the slice bounds, the
 grid and the dynamic shared memory. Both take the split and the slices from
 ``_k_split``, so P sums in the same order on both paths and the fused solve
-equals the two-kernel solve bit for bit. The C entries refuse a plan that
-cannot launch, and the wrappers raise.
+equals the two-kernel solve bit for bit. ``nmf_update`` has no split (K is
+its output axis); its plan (``nmf_update_plan``) gives the tile, the grid
+over K and F and the shared memory of its staging ring, which does not grow
+with D. The C entries refuse a plan that cannot launch, and the wrappers
+raise.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ _RECON_STAGES = 4        # nmf_recon's cp.async ring (EVC_RECON_NS)
 _FUSED_BN = 256          # fused: phase-1 D chunk and phase-2 K pass (EVC_FUSED_BN)
 # fused (F tile, ring depth) instances of evc_fused_any, preferred first
 _FUSED_TILES = ((32, 4), (16, 2), (8, 2))
+UPDATE_TILE = (64, 128)  # nmf_update's CTA tile, F x K (EVC_UPDATE_BM/BN)
+_UPDATE_STAGES = 4       # nmf_update's cp.async ring (EVC_UPDATE_NS)
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -132,6 +137,20 @@ def nmf_mu_fused_plan(F: int, K: int, D: int, n_sms: int) -> dict:
             "grid": (split, _cdiv(F, tf), 1), "smem_bytes": smem}
 
 
+def nmf_update_plan(F: int, K: int, D: int, n_sms: int) -> dict:
+    """``nmf_update``'s launch plan: a 64 × 128 (F × K) tile per CTA of 256
+    threads of 8 × 4 outputs each, grid (K tiles, F tiles, 1), no cluster.
+    D and ``n_sms`` leave it unchanged (the signature is the other plans'):
+    the kernel stages D ``_BK`` columns at a time, so its shared memory, a
+    ring of d-major P and A slices with padded rows, is the same for every
+    D."""
+    bm, bn = UPDATE_TILE
+    return {"tile": (bm, bn), "thread_tile": _THREAD_TILE,
+            "threads": bm * bn // (_THREAD_TILE[0] * _THREAD_TILE[1]),
+            "stages": _UPDATE_STAGES, "grid": (_cdiv(K, bn), _cdiv(F, bm), 1),
+            "smem_bytes": 4 * _UPDATE_STAGES * _BK * (bm + 4 + bn + 4)}
+
+
 class _Plan(ctypes.Structure):
     """``EvcPlan`` of ``csrc/nmf_mu.cu``."""
     _fields_ = [*((name, ctypes.c_int) for name in ("bm", "bn", "threads", "stages", "split",
@@ -142,19 +161,24 @@ class _Plan(ctypes.Structure):
 
 def _pack(plan: dict) -> _Plan:
     # bounds past the struct's room are dropped: the C entry refuses such a
-    # split before it reads them
-    bounds = list(plan["k_bounds"])[:MAX_CLUSTER + 1]
+    # split before it reads them. A plan without a split (nmf_update) packs
+    # split 1 and bounds that the C entry does not read.
+    bounds = list(plan.get("k_bounds", (0,)))[:MAX_CLUSTER + 1]
     bounds += [bounds[-1]] * (MAX_CLUSTER + 1 - len(bounds))
-    return _Plan(*plan["tile"], plan["threads"], plan["stages"], plan["split"], *plan["grid"],
+    return _Plan(*plan["tile"], plan["threads"], plan["stages"], plan.get("split", 1),
+                 *plan["grid"],
                  plan["smem_bytes"], (ctypes.c_int * (MAX_CLUSTER + 1))(*bounds))
 
 
 def co_resident_clusters(kernel: str, plan: dict, F: int, K: int, D: int) -> int:
     """How many clusters of ``plan`` the current card holds at once, for
-    ``kernel`` "nmf_recon" or "nmf_mu_fused" (the C entry checks the plan as
-    for a launch and raises where it would refuse it)."""
+    ``kernel`` "nmf_recon", "nmf_mu_fused" or "nmf_update" (no cluster: its
+    CTAs, CTAs an SM times the SMs, as the occupancy query reports them). The
+    C entry checks the plan as for a launch and raises where it would refuse
+    it."""
     name = {"nmf_recon": "evc_nmf_recon_clusters",
-            "nmf_mu_fused": "evc_nmf_fused_mu_clusters"}[kernel]
+            "nmf_mu_fused": "evc_nmf_fused_mu_clusters",
+            "nmf_update": "evc_nmf_update_clusters"}[kernel]
     ci = ctypes.c_int
     n = ci()
     _launch(name, [ci, ci, ci, ctypes.POINTER(_Plan), ctypes.POINTER(ci)], F, K, D,
@@ -162,10 +186,13 @@ def co_resident_clusters(kernel: str, plan: dict, F: int, K: int, D: int) -> int
     return n.value
 
 
+_PLANS = {"nmf_recon": nmf_recon_plan, "nmf_update": nmf_update_plan,
+          "nmf_mu_fused": nmf_mu_fused_plan}
+
+
 @lru_cache(maxsize=64)
 def _default_plan(kernel: str, F: int, K: int, D: int, n_sms: int) -> _Plan:
-    plan = nmf_recon_plan if kernel == "nmf_recon" else nmf_mu_fused_plan
-    return _pack(plan(F, K, D, n_sms))
+    return _pack(_PLANS[kernel](F, K, D, n_sms))
 
 
 @lru_cache(maxsize=8)
@@ -228,10 +255,12 @@ def nmf_update_plain(P: torch.Tensor, A: torch.Tensor, H: torch.Tensor,
 
 def nmf_update(P: torch.Tensor, A: torch.Tensor, H: torch.Tensor,
                Num: torch.Tensor, l1: float = 0.0,
-               out: torch.Tensor | None = None) -> torch.Tensor:
+               out: torch.Tensor | None = None, plan: dict | None = None) -> torch.Tensor:
     """One MU update; on CUDA through ``evc_nmf_update`` (counted in
-    ``nmf_update.launches``). ``out=H`` updates H in place, which the kernel
-    allows (each element is read, then written, by one thread)."""
+    ``nmf_update.launches``) with ``plan`` (default ``nmf_update_plan``; one
+    the card cannot launch raises RuntimeError). ``out=H`` updates H in
+    place, which the kernel allows (each element is read, then written, by
+    one thread)."""
     if H.device.type == "cpu":
         res = nmf_update_plain(P, A, H, Num, l1)
         if out is None:
@@ -248,12 +277,15 @@ def nmf_update(P: torch.Tensor, A: torch.Tensor, H: torch.Tensor,
         out = torch.empty_like(H)
     else:
         _check_f32("out", out, (F, K), H.device)
+    packed = (_default_plan("nmf_update", F, K, D, _sms(H.device)) if plan is None
+              else _pack(plan))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream(H.device).cuda_stream
-        _launch("evc_nmf_update", [vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, vp],
+        _launch("evc_nmf_update",
+                [vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ctypes.POINTER(_Plan), vp],
                 P.data_ptr(), A.data_ptr(), H.data_ptr(), Num.data_ptr(),
-                out.data_ptr(), F, K, D, float(l1), stream)
+                out.data_ptr(), F, K, D, float(l1), ctypes.byref(packed), stream)
     nmf_update.launches += 1
     return out
 

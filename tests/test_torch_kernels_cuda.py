@@ -8,8 +8,9 @@ one. The file imports no jax, so on a machine without jax it runs alone:
 Tolerances: the DTW kernels equal their twins exactly (min/add only); the
 NMF kernels (the fused MU iteration too) sum in another order than cuBLAS,
 so one call agrees within a relative error max|kernel − plain| / max|plain|
-of 1e-5. The split-K NMF kernels use no atomics, so repeated launches are
-compared for equal bits. The fused Griffin-Lim's unit phases after 6 iterations are held
+of 1e-5. The NMF kernels use no atomics, so repeated launches are compared
+for equal bits, and the update's float4 and scalar epilogues (aligned and
+misaligned pointers) for equal bits too: they do the same arithmetic. The fused Griffin-Lim's unit phases after 6 iterations are held
 to a float64 run of its twin: the kernel's mean phase error may be at most
 twice the float32 twin's own (+ 1e-7), and kernel and twin agree within
 1e-4 relative L2. An element-wise 1e-4 between kernel and twin holds only
@@ -85,6 +86,58 @@ def test_nmf_kernels_match_twins(cuda, F, K, D):
     assert out is Hin and _rel(Hin, nmf_cuda.nmf_update_plain(P, A, H, Num)) <= 1e-5
 
 
+# the update's edges: K % 4 != 0 (3, 130, 7681; the scalar epilogue), K below
+# the 128-column tile, F below / one past the 64-row tile, D = 1, and
+# D = 8193, past the fused kernel's limit (the update stages D in slices)
+UPDATE_EDGES = [(13, 3, 25), (64, 130, 201), (65, 7681, 201), (63, 100, 1), (1, 130, 8193),
+                (100, 700, 8193), (688, 7680, 201)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,K,D", UPDATE_EDGES)
+def test_nmf_update_edges_match_twin(cuda, F, K, D):
+    """Zero dictionary rows make den = 0 (l1 = 0) → EPS; there Num = 0 too,
+    so the update collapses to 0 and stays finite."""
+    rng = np.random.default_rng(F + K + D)
+    A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
+    zero = max(1, K // 10)
+    A[K - zero:] = 0.0
+    A = torch.as_tensor(A, device=cuda)
+    X = torch.as_tensor(np.abs(rng.standard_normal((F, D))).astype(np.float32), device=cuda)
+    H = torch.as_tensor(rng.uniform(0, 0.05, (F, K)).astype(np.float32), device=cuda)
+    Num = X @ A.T
+    P = nmf_cuda.nmf_recon_plain(H, A)
+    for l1 in (0.0, 0.3):
+        before = nmf_cuda.nmf_update.launches
+        got = nmf_cuda.nmf_update(P, A, H, Num, l1)
+        assert nmf_cuda.nmf_update.launches == before + 1
+        assert _rel(got, nmf_cuda.nmf_update_plain(P, A, H, Num, l1)) <= 1e-5
+        assert bool(torch.isfinite(got).all()) and (got[:, K - zero:] == 0).all()
+    Hin = H.clone()
+    out = nmf_cuda.nmf_update(P, A, Hin, Num, out=Hin)
+    assert out is Hin and _rel(Hin, nmf_cuda.nmf_update_plain(P, A, H, Num)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_nmf_update_in_place_on_misaligned_views(cuda):
+    """H, Num and out as contiguous views 4 bytes into their storage: the
+    kernel takes its scalar epilogue, in place, and gives the bits of the
+    float4 epilogue on aligned copies."""
+    F, K, D = 100, 700, 201
+    A, H, Num = _nmf_inputs(F, K, D, cuda)
+    P = nmf_cuda.nmf_recon(H, A)
+    aligned = nmf_cuda.nmf_update(P, A, H, Num, 0.3)
+    hbuf = torch.empty(F * K + 1, device=cuda)
+    nbuf = torch.empty(F * K + 1, device=cuda)
+    Hv, Nv = hbuf[1:].view(F, K), nbuf[1:].view(F, K)
+    assert Hv.is_contiguous() and Hv.data_ptr() % 16 == 4
+    Hv.copy_(H)
+    Nv.copy_(Num)
+    out = nmf_cuda.nmf_update(P, A, Hv, Nv, 0.3, out=Hv)
+    assert out is Hv and torch.equal(Hv, aligned)
+    assert _rel(Hv, nmf_cuda.nmf_update_plain(P, A, H, Num, 0.3)) <= 1e-5
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(cuda):
     H = torch.zeros((4, 8), device=cuda)
@@ -129,31 +182,36 @@ def _nmf_inputs(F, K, D, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("F,K,D", [(688, 7680, 201), (689, 7681, 300)])
+@pytest.mark.parametrize("F,K,D", [(688, 7680, 201), (689, 7681, 300), (65, 1030, 520)])
 def test_nmf_split_k_kernels_are_deterministic(cuda, F, K, D):
     """No atomics: repeated launches give equal bits, and the fused iteration
-    equals recon + update bit for bit (both sum P over the same K slices)."""
+    equals recon + update bit for bit (both sum P over the same K slices, and
+    den over d ascending from zero)."""
     A, H, Num = _nmf_inputs(F, K, D, cuda)
-    assert torch.equal(nmf_cuda.nmf_recon(H, A), nmf_cuda.nmf_recon(H, A))
+    P = nmf_cuda.nmf_recon(H, A)
+    assert torch.equal(P, nmf_cuda.nmf_recon(H, A))
     got = nmf_cuda.nmf_mu_fused(H, A, Num, 0.3)
     assert torch.equal(got, nmf_cuda.nmf_mu_fused(H, A, Num, 0.3))
-    assert torch.equal(got, nmf_cuda.nmf_update(nmf_cuda.nmf_recon(H, A), A, H, Num, 0.3))
+    upd = nmf_cuda.nmf_update(P, A, H, Num, 0.3)
+    assert torch.equal(upd, nmf_cuda.nmf_update(P, A, H, Num, 0.3))
+    assert torch.equal(got, upd)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["nmf_recon", "nmf_mu_fused"])
+@pytest.mark.parametrize("kernel", ["nmf_recon", "nmf_mu_fused", "nmf_update"])
 @pytest.mark.parametrize("fault", ["cluster", "smem", "tile"])
 def test_nmf_plan_that_cannot_launch_raises(cuda, kernel, fault):
-    """A cluster above the portable 8, shared memory above the opt-in limit or
-    a tile the source does not compile is refused before any launch."""
+    """A cluster above the portable 8 (for the update, any cluster), shared
+    memory above the opt-in limit or a tile the source does not compile is
+    refused before any launch."""
     F, K, D = 100, 700, 201
     A, H, Num = _nmf_inputs(F, K, D, cuda)
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    if kernel == "nmf_recon":
-        plan = nmf_cuda.nmf_recon_plan(F, K, D, n_sms)
-    else:
-        plan = nmf_cuda.nmf_mu_fused_plan(F, K, D, n_sms)
-    if fault == "cluster":
+    plan = {"nmf_recon": nmf_cuda.nmf_recon_plan, "nmf_mu_fused": nmf_cuda.nmf_mu_fused_plan,
+            "nmf_update": nmf_cuda.nmf_update_plan}[kernel](F, K, D, n_sms)
+    if fault == "cluster" and kernel == "nmf_update":
+        plan = dict(plan, split=2)
+    elif fault == "cluster":
         plan = dict(plan, split=9, cluster=(9, 1, 1), grid=(9, *plan["grid"][1:]),
                     k_bounds=tuple(range(0, 9 * 64, 64)) + (K,))
     elif fault == "smem":
@@ -166,6 +224,8 @@ def test_nmf_plan_that_cannot_launch_raises(cuda, kernel, fault):
     with pytest.raises((ValueError, RuntimeError)):
         if kernel == "nmf_recon":
             nmf_cuda.nmf_recon(H, A, plan=plan)
+        elif kernel == "nmf_update":
+            nmf_cuda.nmf_update(nmf_cuda.nmf_recon_plain(H, A), A, H, Num, out=out, plan=plan)
         else:
             nmf_cuda.nmf_mu_fused(H, A, Num, out=out, plan=plan)
     torch.cuda.synchronize()
