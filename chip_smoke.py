@@ -13,8 +13,13 @@ Phases (any failure exits non-zero and prints no result line):
    ``griffin_lim_fused``), all started together;
 2. each kernel against its plain-PyTorch twin on the card, at the main
    path's shapes, on seeded numpy inputs, with CUDA-event times (median of
-   7; 3 for the 300-iteration Griffin-Lim runs): the DTW wavefront and
-   backtrace must be exactly equal (the DP is min/add only); ``nmf_recon``,
+   7; 3 for the 300-iteration Griffin-Lim runs and the DTW twins), each
+   beside its bound (the larger of its bytes over 3.35 TB/s and its fp32
+   operations over 67 TFLOP/s) and its roofline share: the DTW wavefront and
+   backtrace must be exactly equal (the DP is min/add only) at the main
+   path's 8 × 1408² (timed, with the time a diagonal step), the MCD's
+   1 × 683² (timed), 1409 × 1300, 300 × 517, 517 × 300 (with la = 1 and
+   lb = 1 rows) and the longest Ta the wrappers take, 19,370 × 2000; ``nmf_recon``,
    ``nmf_update`` and the one-kernel MU iteration ``nmf_mu_fused`` within a
    relative error max|kernel − plain| / max|plain| of 1e-5 for one call and
    1e-4 after 10 MU steps (they sum in different orders), all three also at
@@ -133,10 +138,26 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s, fp32
+# FLOP/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least time (ms) for moving ``n_bytes`` (each input read once, each
+    output written once) and doing ``n_ops`` fp32 operations, and which of
+    the two bounds it."""
+    t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, n_ops / FP32_FLOP_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
 def phase_kernels(torch, np, dev) -> dict:
+    from exemplars_vc_tpu_torch.align import dtw_cuda
     from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
     from exemplars_vc_tpu_torch.align.dtw_cuda import (
-        dtw_backtrace, dtw_backtrace_plain, dtw_wavefront, dtw_wavefront_plain)
+        dtw_backtrace, dtw_backtrace_plain, dtw_wavefront, dtw_wavefront_plain,
+        dtw_wavefront_plan)
     from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
     from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import (
         gl_angles_fused, gl_angles_fused_plain, gl_fused_plan, grid_sync_probe)
@@ -146,38 +167,81 @@ def phase_kernels(torch, np, dev) -> dict:
 
     rng = np.random.default_rng(0)
     out = {}
-    # DTW at the main path's shapes: 8 pairs, 1408 padded frames, 20 MFCC
-    N, T, Dm = 8, 1408, 20
-    fa = torch.as_tensor(rng.standard_normal((N, T, Dm)).astype(np.float32), device=dev)
-    fb = torch.as_tensor(rng.standard_normal((N, T, Dm)).astype(np.float32), device=dev)
-    lens = torch.as_tensor(np.stack([rng.integers(1100, T + 1, N), rng.integers(1100, T + 1, N)],
-                                    axis=1).astype(np.int32), device=dev)
-    C = pairwise_sqdist(fa, fb).contiguous()
-    cost_k, dirs_k = dtw_wavefront(C, lens)
-    cost_p, dirs_p = dtw_wavefront_plain(C, lens)
-    torch.cuda.synchronize()
-    if not (torch.equal(dirs_k, dirs_p) and torch.equal(cost_k, cost_p)):
-        fail(f"dtw_wavefront != twin: {int((dirs_k != dirs_p).sum())} codes differ, "
-             f"max cost diff {float((cost_k - cost_p).abs().max())}")
-    paths_k = dtw_backtrace(dirs_k, lens)
-    paths_p = dtw_backtrace_plain(dirs_k, lens)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(paths_k, paths_p)):
-        fail("dtw_backtrace != twin")
-    out["dtw_wavefront"] = dict(max_abs_err=float((cost_k - cost_p).abs().max()),
-                                ms=cuda_ms(lambda: dtw_wavefront(C, lens)),
-                                plain_ms=cuda_ms(lambda: dtw_wavefront_plain(C, lens), reps=5))
-    out["dtw_backtrace"] = dict(
-        max_abs_err=float(max((a - b).abs().max() for a, b in zip(paths_k, paths_p))),
-        ms=cuda_ms(lambda: dtw_backtrace(dirs_k, lens)),
-        plain_ms=cuda_ms(lambda: dtw_backtrace_plain(dirs_k, lens), reps=5))
-    say(f"dtw: N={N} T={T} D={Dm}: wavefront and backtrace equal to their twins "
-        f"(costs {[round(float(c), 3) for c in cost_k[:3]]}..., path_len "
-        f"{paths_k[2][:3].tolist()}...)")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # DTW: the main path's dictionary shape (8 pairs, 1408 padded frames, 20
+    # MFCC) and the MCD's (one pair of 683 mel-cepstral frames, order 25),
+    # timed; then the edges: Ta > 1024 and not a multiple of 32, Ta < Tb,
+    # Ta > Tb, la = 1 and lb = 1, and the longest Ta the wrappers take
+    def dtw_case(name, n, ta, tb, dim, lens_rows, timed):
+        fa = torch.as_tensor(rng.standard_normal((n, ta, dim)).astype(np.float32), device=dev)
+        fb = torch.as_tensor(rng.standard_normal((n, tb, dim)).astype(np.float32), device=dev)
+        lens = torch.as_tensor(np.asarray(lens_rows, np.int32), device=dev)
+        C = pairwise_sqdist(fa, fb).contiguous()
+        del fa, fb
+        cost_k, dirs_k = dtw_wavefront(C, lens)
+        cost_p, dirs_p = dtw_wavefront_plain(C, lens)
+        torch.cuda.synchronize()
+        if not (torch.equal(dirs_k, dirs_p) and torch.equal(cost_k, cost_p)):
+            fail(f"dtw_wavefront != twin at {name}: {int((dirs_k != dirs_p).sum())} codes "
+                 f"differ, max cost diff {float((cost_k - cost_p).abs().max())}")
+        del dirs_p
+        paths_k = dtw_backtrace(dirs_k, lens)
+        paths_p = dtw_backtrace_plain(dirs_k, lens)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(paths_k, paths_p)):
+            fail(f"dtw_backtrace != twin at {name}")
+        plan = dtw_wavefront_plan(n, ta, n_sms)
+        n_diag = ta + tb - 1
+        walked = int(paths_k[2].sum())
+        # least time: C read and every code written once (the wavefront sweeps
+        # all n·(Ta+Tb-1)·Ta cells, 6 float ops each); the backtrace reads
+        # the codes of its walk and writes both padded paths
+        wf = bound(n * ta * tb * 4 + n * n_diag * ta + n * 12, 6 * n * n_diag * ta)
+        bt = bound(n * 8 + walked + 2 * n * n_diag * 4 + n * 4, 0)
+        rec = dict(cost=cost_k, lens=lens, paths=paths_k)
+        msg = (f"dtw {name}: N={n} Ta={ta} Tb={tb}: both kernels equal to their twins; plan "
+               f"R={plan['rows_per_lane']} rows a lane, {plan['warps_per_cta']} warps a CTA, "
+               f"cluster {plan['cluster']}; path cells {walked}")
+        if timed:
+            wms = cuda_ms(lambda: dtw_wavefront(C, lens))
+            bms = cuda_ms(lambda: dtw_backtrace(dirs_k, lens))
+            rec.update(
+                wavefront=dict(max_abs_err=float((cost_k - cost_p).abs().max()), ms=wms,
+                               plain_ms=cuda_ms(lambda: dtw_wavefront_plain(C, lens), reps=3),
+                               bound_ms=wf[0], bound_by=wf[1], library_ms=None),
+                backtrace=dict(max_abs_err=float(max((a - b).abs().max()
+                                                     for a, b in zip(paths_k, paths_p))),
+                               ms=bms, plain_ms=cuda_ms(lambda: dtw_backtrace_plain(dirs_k, lens),
+                                                        reps=3),
+                               bound_ms=bt[0], bound_by=bt[1], library_ms=None))
+            msg += (f"\n  wavefront {wms:.4f} ms ({wms * 1e3 / n_diag:.4f} us a diagonal "
+                    f"step), bound {wf[0]:.4f} ms ({wf[1]}), roofline share {wf[0] / wms:.4f}; "
+                    f"twin {rec['wavefront']['plain_ms']:.4f} ms"
+                    f"\n  backtrace {bms:.4f} ms ({bms * 1e3 / max(walked // n, 1):.4f} us a "
+                    f"path step), bound {bt[0]:.6f} ms ({bt[1]}), roofline share "
+                    f"{bt[0] / bms:.6f}; twin {rec['backtrace']['plain_ms']:.4f} ms")
+        say(msg)
+        del C, dirs_k
+        torch.cuda.empty_cache()
+        return rec
+
+    T = 1408
+    main = dtw_case("main path", 8, T, T, 20,
+                    np.stack([rng.integers(1100, T + 1, 8), rng.integers(1100, T + 1, 8)], 1),
+                    timed=True)
+    out["dtw_wavefront"], out["dtw_backtrace"] = main["wavefront"], main["backtrace"]
+    say(f"  main path costs {[round(float(c), 3) for c in main['cost'][:3]]}..., path_len "
+        f"{main['paths'][2][:3].tolist()}...")
+    mcd = dtw_case("MCD", 1, 683, 683, 26, [[683, 683]], timed=True)
+    for name, ta, tb in (("Ta>1024, Ta%32!=0", 1409, 1300), ("Ta<Tb", 300, 517),
+                         ("Ta>Tb", 517, 300)):
+        dtw_case(name, 4, ta, tb, 20, [[ta, tb], [1, tb], [ta, 1], [1, 1]], timed=False)
+    dtw_case("longest Ta", 1, dtw_cuda.MAX_TA, 2000, 4, [[dtw_cuda.MAX_TA, 2000]], timed=False)
+    out["_dtw_mcd"] = mcd
 
     # NMF at the main path's shapes
     F, K, D = 688, 7680, 201
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, plan_fn in (("nmf_recon", nmf_recon_plan), ("nmf_mu_fused", nmf_mu_fused_plan)):
         for k in (K, 115_200):
             pl = plan_fn(F, k, D, n_sms)
@@ -217,12 +281,22 @@ def phase_kernels(torch, np, dev) -> dict:
         f"(limit 1e-5), 10 MU steps {e_10:.3g} (limit 1e-4)")
     if not (e_recon <= 1e-5 and e_update <= 1e-5 and e_10 <= 1e-4):
         fail("nmf kernels outside tolerance")
+    # bounds: P = H·A and P·Aᵀ are 2FKD flops each; recon reads H and A and
+    # writes P, the update reads P, A, H, Num and writes H; the fused
+    # iteration does both products and reads H, A, Num, writes H
+    fkd, fk = 2 * F * K * D, F * K
     out["nmf_recon"] = dict(max_abs_err=float((nmf_recon(H, A) - P).abs().max()),
                             ms=cuda_ms(lambda: nmf_recon(H, A)),
-                            plain_ms=cuda_ms(lambda: nmf_recon_plain(H, A)))
+                            plain_ms=cuda_ms(lambda: nmf_recon_plain(H, A)),
+                            library_ms=cuda_ms(lambda: torch.matmul(H, A)))
+    out["nmf_recon"]["bound_ms"], out["nmf_recon"]["bound_by"] = bound(
+        4 * (fk + K * D + F * D), fkd)
     out["nmf_update"] = dict(max_abs_err=float((nmf_update(P, A, H, Num) - H1p).abs().max()),
                              ms=cuda_ms(lambda: nmf_update(P, A, H, Num)),
-                             plain_ms=cuda_ms(lambda: nmf_update_plain(P, A, H, Num)))
+                             plain_ms=cuda_ms(lambda: nmf_update_plain(P, A, H, Num)),
+                             library_ms=None)
+    out["nmf_update"]["bound_ms"], out["nmf_update"]["bound_by"] = bound(
+        4 * (F * D + K * D + 3 * fk), fkd + 4 * fk)
 
     # the one-kernel MU iteration at the same shapes
     H1f = nmf_mu_fused_plain(H, A, Num)
@@ -239,7 +313,10 @@ def phase_kernels(torch, np, dev) -> dict:
         fail("nmf_mu_fused outside tolerance")
     out["nmf_mu_fused"] = dict(max_abs_err=float((nmf_mu_fused(H, A, Num) - H1f).abs().max()),
                                ms=cuda_ms(lambda: nmf_mu_fused(H, A, Num)),
-                               plain_ms=cuda_ms(lambda: nmf_mu_fused_plain(H, A, Num)))
+                               plain_ms=cuda_ms(lambda: nmf_mu_fused_plain(H, A, Num)),
+                               library_ms=None)
+    out["nmf_mu_fused"]["bound_ms"], out["nmf_mu_fused"]["bound_by"] = bound(
+        4 * (K * D + 3 * fk), 2 * fkd + 4 * fk)
     two_ms = cuda_ms(lambda: nmf_update(nmf_recon(H, A), A, H, Num))
     say(f"  one MU iteration at K={K}: fused kernel {out['nmf_mu_fused']['ms']:.4f} ms, "
         f"nmf_recon + nmf_update {two_ms:.4f} ms, plain {out['nmf_mu_fused']['plain_ms']:.4f} ms")
@@ -300,10 +377,16 @@ def phase_kernels(torch, np, dev) -> dict:
         f"{plan['smem_bytes']} B shared memory")
     if not (e_l2 <= 1e-4 and float(d_k.mean()) <= 2 * float(d_p.mean()) + 1e-7):
         fail("gl_angles_fused outside tolerance")
+    # bound: each iteration is an inverse and a forward real DFT by table
+    # products, 2·2·bins·n_fft multiply-adds a frame (4·2·bins·n_fft flops);
+    # it reads the magnitudes and phases once and writes the phases
     out["gl_angles_fused"] = dict(
         max_abs_err=e_gl,
         ms=cuda_ms(lambda: gl_angles_fused(mag, ang, n_fft, hop, 300, 0.9), reps=3),
-        plain_ms=cuda_ms(lambda: gl_angles_fused_plain(mag, ang, n_fft, hop, 300, 0.9), reps=3))
+        plain_ms=cuda_ms(lambda: gl_angles_fused_plain(mag, ang, n_fft, hop, 300, 0.9), reps=3),
+        library_ms=None)
+    out["gl_angles_fused"]["bound_ms"], out["gl_angles_fused"]["bound_by"] = bound(
+        4 * Fg * nb + 2 * 8 * Fg * nb, 300 * Fg * 4 * 2 * nb * n_fft)
     sync_ms = cuda_ms(lambda: grid_sync_probe(plan["grid"], 300, dev), reps=3)
     prod_ms = cuda_ms(lambda: griffin_lim(mag, n_fft=n_fft, hop_length=hop, n_iter=300,
                                           init_phase=ang), reps=3)
@@ -313,17 +396,24 @@ def phase_kernels(torch, np, dev) -> dict:
         f"{out['gl_angles_fused']['plain_ms']:.4f} ms, production griffin_lim {prod_ms:.4f} ms "
         f"(device time {fmt_ms(prod_dev)}); floor of 300 grid syncs on {plan['grid']} blocks "
         f"{sync_ms:.4f} ms ({sync_ms / 300 * 1e3:.3f} us each)")
+    mcd = out.pop("_dtw_mcd")
     for name, r in out.items():
-        say(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"max_abs_err {r['max_abs_err']:.3g}")
+        say(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+            f"roofline share {r['bound_ms'] / r['ms']:.4f}, max_abs_err {r['max_abs_err']:.3g}")
+    for name in ("wavefront", "backtrace"):
+        r = mcd[name]
+        say(f"  dtw_{name} at the MCD shape: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), roofline share "
+            f"{r['bound_ms'] / r['ms']:.4f}")
     return out
 
 
 def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
                     fused: dict) -> dict:
-    from exemplars_vc_tpu.config import load_config
-    from exemplars_vc_tpu.io.store import ArtifactStore
-    from exemplars_vc_tpu.io.wav import read_wav
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.io.wav import read_wav
     from exemplars_vc_tpu_torch.pipelines.convert import convert_utterance
 
     data, src, tar = corpus
@@ -378,9 +468,9 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
     """The opt-in fused path on the stand-in corpus: the one-kernel MU solve
     and the fused Griffin-Lim, held against the default solve and the
     production ``griffin_lim`` on the same inputs."""
-    from exemplars_vc_tpu.config import load_config
-    from exemplars_vc_tpu.io.store import ArtifactStore
-    from exemplars_vc_tpu.io.wav import read_wav
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.io.wav import read_wav
     from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
     from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import gl_angles_fused
     from exemplars_vc_tpu_torch.dsp.stft import istft, stft
@@ -465,8 +555,8 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
 
 
 def phase_small_agreement(torch, np, dev, root: str) -> None:
-    from exemplars_vc_tpu.config import load_config
-    from exemplars_vc_tpu.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
     from exemplars_vc_tpu_torch.io.standin import build_standin_corpus
     from exemplars_vc_tpu_torch.pipelines.convert import convert_utterance
 
@@ -557,7 +647,9 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]} for name in sources]}))
+         "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"]}
+        for name in sources]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -10,13 +10,15 @@ package, which stays the reference) to PyTorch on an NVIDIA H100:
 - ``factorize``  fixed-dictionary MU NMF (CUDA kernels ``csrc/nmf_mu.cu``)
 - ``pipelines``  dictionary build, conversion features, ``convert_utterance``
 - ``obs``        MCD metrics and a stage timer
-- ``io``         the stand-in corpus builder over the in-repo speech
+- ``io``         wav IO, the artifact store, the native batch wav loader and
+                 the stand-in corpus made of the in-repo speech
+- ``config``     the typed configuration (``load_config``)
 - ``kernels``    the nvcc build + ctypes loader for ``csrc/*.cu``
 
 Every kernel wrapper takes a CUDA tensor to its hand-written kernel (or
 raises) and a CPU tensor to the plain-PyTorch twin beside it. The package
-imports ``torch`` and never ``jax``; configuration, wav IO and the artifact
-store are reused from the JAX package's JAX-free modules.
+imports ``torch`` and nothing of ``jax`` or of the JAX package: it keeps its
+own copies of the configuration, wav IO and the artifact store.
 """
 
 from exemplars_vc_tpu_torch import device as _device  # noqa: F401  (fp32 parity flags)

@@ -8,9 +8,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from exemplars_vc_tpu.config import Config
-from exemplars_vc_tpu.io.store import ArtifactStore, bucketed_signal
+from exemplars_vc_tpu_torch.config import Config
+from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.dsp.stft import stft
+from exemplars_vc_tpu_torch.io.store import ArtifactStore, bucketed_signal
 from exemplars_vc_tpu_torch.pipelines.make_dict import speaker_batch, trim_and_mask
 
 
@@ -22,10 +23,11 @@ class ConversionFeatures:
 
 
 def extract_stft_complex(sig: np.ndarray, cfg: Config,
-                         device: str | torch.device) -> torch.Tensor:
+                         device: str | torch.device = "cuda") -> torch.Tensor:
     """Complex STFT (F, bins) of one utterance: the signal is zero-padded to
     the frame bucket, as the dictionaries are, then cut to 1 + len // hop
     frames."""
+    device = resolve_device(device)
     m = cfg.mcep
     padded, true_frames = bucketed_signal(sig, m.hop_length, cfg.data.frame_bucket)
     x = torch.as_tensor(padded.astype(np.float32), device=device)
@@ -34,14 +36,14 @@ def extract_stft_complex(sig: np.ndarray, cfg: Config,
 
 
 def extract_stft_features(sig: np.ndarray, cfg: Config,
-                          device: str | torch.device) -> torch.Tensor:
+                          device: str | torch.device = "cuda") -> torch.Tensor:
     """|STFT| (F, bins) of one utterance on :func:`extract_stft_complex`'s grid."""
     return torch.abs(extract_stft_complex(sig, cfg, device))
 
 
 def build_conversion_dicts_pair(cfg: Config, store: ArtifactStore, data_path: str,
                                 src: str, tar: str, nb_file: int | None = None,
-                                *, device: str | torch.device):
+                                *, device: str | torch.device = "cuda"):
     """Both speakers' |STFT| batches in one batched call.
 
     The two padded signal batches are padded to a common length and
@@ -50,6 +52,7 @@ def build_conversion_dicts_pair(cfg: Config, store: ArtifactStore, data_path: st
     ``store`` is unused: the STFT batch is recomputed, never persisted (as in
     the JAX package)."""
     del store
+    device = resolve_device(device)
     if not cfg.data.use_stft:
         raise NotImplementedError("the WORLD conversion path is ROADMAP queue 1 item 10")
     nb = nb_file if nb_file is not None else cfg.misc.nb_file

@@ -9,7 +9,9 @@
 5. optionally score the DTW-aligned MCD against a reference utterance.
 
 Only the default configuration's levers are ported; any other raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item. The entry points run on the
+card (``device="cuda"``) unless the caller passes ``device="cpu"``; without a
+card the default raises.
 """
 
 from __future__ import annotations
@@ -20,10 +22,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from exemplars_vc_tpu.config import Config
-from exemplars_vc_tpu.io.store import ArtifactStore
-from exemplars_vc_tpu.io.wav import read_wav, write_wav
 from exemplars_vc_tpu_torch.align.exemplar import build_exemplar_dicts_padded
+from exemplars_vc_tpu_torch.config import Config
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
 from exemplars_vc_tpu_torch.dsp.mcep import mcep
@@ -33,6 +33,8 @@ from exemplars_vc_tpu_torch.factorize.nmf import (
     nmf_activations,
     residual_compensation,
 )
+from exemplars_vc_tpu_torch.io.store import ArtifactStore
+from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
 from exemplars_vc_tpu_torch.obs.metrics import mcd_aligned
 from exemplars_vc_tpu_torch.obs.profiling import Timer
 from exemplars_vc_tpu_torch.pipelines.conv_dicts import (
@@ -79,8 +81,9 @@ def _check_slice(cfg: Config) -> None:
 
 
 def mcd_between_signals(a: np.ndarray, b: np.ndarray, cfg: Config,
-                        device: str | torch.device) -> float:
+                        device: str | torch.device = "cuda") -> float:
     """DTW-aligned mel-cepstral distortion (dB) between two waveforms."""
+    device = resolve_device(device)
     m = cfg.mcep
     ca, cb = (mcep(torch.as_tensor(np.asarray(s, np.float32), device=device),
                    frame_length=m.frame_length, hop_length=m.hop_length,
@@ -114,7 +117,7 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
                       out_path: str | None = None, nb_file: int | None = None,
                       use_residual: bool | None = None, synth_iters: int | None = None,
                       reference_wav: str | None = None, sync_stages: bool = False,
-                      *, device: str | torch.device) -> ConversionResult:
+                      *, device: str | torch.device = "cuda") -> ConversionResult:
     """Convert one utterance on ``device`` (see the module docstring).
 
     ``sync_stages=True`` fences the device around each stage so the timings

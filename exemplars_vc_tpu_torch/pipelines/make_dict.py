@@ -16,10 +16,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from exemplars_vc_tpu.config import Config
-from exemplars_vc_tpu.io.store import ArtifactStore, load_speaker
 from exemplars_vc_tpu_torch.align.dtw import dtw_batch
+from exemplars_vc_tpu_torch.config import Config
+from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.dsp.mel import mfcc
+from exemplars_vc_tpu_torch.io.store import ArtifactStore, load_speaker
 
 log = logging.getLogger("exemplars_vc_tpu_torch")
 
@@ -59,7 +60,7 @@ def speaker_batch(data_path: str, speaker: str, nb_file: int | None, step: int,
                   cpu_rate: float = 0.6):
     """Padded (N, T) float32 signal batch (T a multiple of ``step``) and the
     true sample lengths (N,) — the numpy counterpart of the JAX package's
-    ``io.store.stacked_speaker_batch``."""
+    ``io.store.stacked_speaker_batch``, which the port leaves out."""
     sigs, _ = load_speaker(data_path, speaker, nb_file=nb_file, cpu_rate=cpu_rate)
     max_len = max(len(s) for s in sigs)
     target = ((max_len + step - 1) // step) * step
@@ -114,11 +115,11 @@ def pair_mfcc(cfg: Config, data_path: str, nb: int, device: torch.device):
 
 def make_dictionary(cfg: Config, store: ArtifactStore, data_path: str,
                     feat: str = "mfcc", nb_file: int | None = None,
-                    *, device: str | torch.device) -> DictionaryArtifacts:
+                    *, device: str | torch.device = "cuda") -> DictionaryArtifacts:
     """Build (or load) the parallel exemplar dictionary for cfg.data.src→tar."""
     if feat != "mfcc":
         raise NotImplementedError(f"alignment feature {feat!r}: only 'mfcc' is ported")
-    device = torch.device(device)
+    device = resolve_device(device)
     nb = nb_file if nb_file is not None else cfg.misc.nb_file
     hop_tag = "" if cfg.mcep.hop_length == 80 else f"_h{cfg.mcep.hop_length}"
     key = f"exemplar_dict_{cfg.data.src}2{cfg.data.tar}_{feat}_{nb}{hop_tag}_torch"

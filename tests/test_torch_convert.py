@@ -15,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from exemplars_vc_tpu.config import load_config
-from exemplars_vc_tpu.io.store import ArtifactStore
-from exemplars_vc_tpu.io.wav import write_wav
+from exemplars_vc_tpu.config import load_config as jload_config
+from exemplars_vc_tpu.io.store import ArtifactStore as JArtifactStore
 from exemplars_vc_tpu.pipelines import convert as jconvert
 from exemplars_vc_tpu.pipelines.make_dict import make_dictionary as jmake_dictionary
+from exemplars_vc_tpu_torch.config import load_config
 from exemplars_vc_tpu_torch.io.standin import build_standin_corpus
+from exemplars_vc_tpu_torch.io.store import ArtifactStore
+from exemplars_vc_tpu_torch.io.wav import write_wav
 from exemplars_vc_tpu_torch.pipelines import convert as tconvert
 from exemplars_vc_tpu_torch.pipelines.make_dict import from_jax_artifacts, make_dictionary
 
@@ -68,9 +70,18 @@ def corpus(tmp_path_factory):
         str(root / "wav" / "TF1_100162.wav")
 
 
+OVERRIDES = ["data.tar=TF1", "misc.nb_file=3", "nmf.max_iter=20"]
+
+
 @pytest.fixture(scope="module")
 def cfg():
-    return load_config(overrides=["data.tar=TF1", "misc.nb_file=3", "nmf.max_iter=20"])
+    """The port's config; ``jcfg`` is the JAX package's, from the same overrides."""
+    return load_config(overrides=OVERRIDES)
+
+
+@pytest.fixture(scope="module")
+def jcfg():
+    return jload_config(overrides=OVERRIDES)
 
 
 def _rel_l2(a, b):
@@ -87,9 +98,9 @@ def _assert_same_conversion(got, ref):
     assert abs(got.mcd_vs_reference - ref.mcd_vs_reference) < 0.05
 
 
-def test_convert_utterance_matches_jax(corpus, cfg, tmp_path):
+def test_convert_utterance_matches_jax(corpus, cfg, jcfg, tmp_path):
     data, src, tar = corpus
-    ref = jconvert.convert_utterance(cfg, ArtifactStore(str(tmp_path / "j")), data, src,
+    ref = jconvert.convert_utterance(jcfg, JArtifactStore(str(tmp_path / "j")), data, src,
                                      nb_file=3, synth_iters=5, reference_wav=tar)
     got = tconvert.convert_utterance(cfg, ArtifactStore(str(tmp_path / "t")), data, src,
                                      nb_file=3, synth_iters=5, reference_wav=tar,
@@ -99,7 +110,7 @@ def test_convert_utterance_matches_jax(corpus, cfg, tmp_path):
     assert set(got.timings) == {"dicts", "features", "nmf_solve", "synthesis"}
 
     # the dictionary: the same DTW paths as the JAX package's
-    jart = jmake_dictionary(cfg, ArtifactStore(str(tmp_path / "j")), data, nb_file=3)
+    jart = jmake_dictionary(jcfg, JArtifactStore(str(tmp_path / "j")), data, nb_file=3)
     tart = make_dictionary(cfg, ArtifactStore(str(tmp_path / "t")), data, nb_file=3,
                            device="cpu")          # a store hit: the saved artifact
     for name in ("path_i", "path_j", "path_len", "len_a", "len_b"):
@@ -109,27 +120,27 @@ def test_convert_utterance_matches_jax(corpus, cfg, tmp_path):
                                rtol=1e-5, atol=1e-4)
 
 
-def test_convert_with_jax_dictionary(corpus, cfg, tmp_path):
+def test_convert_with_jax_dictionary(corpus, cfg, jcfg, tmp_path):
     """A dictionary built by the JAX package, carried over with
     ``from_jax_artifacts``, holds NMF + Griffin-Lim + synthesis parity apart
     from any DTW difference."""
     data, src, tar = corpus
-    jstore = ArtifactStore(str(tmp_path / "j"))
-    jmake_dictionary(cfg, jstore, data, nb_file=3)
+    jstore = JArtifactStore(str(tmp_path / "j"))
+    jmake_dictionary(jcfg, jstore, data, nb_file=3)
     arrays = jstore.load("exemplar_dict_SF12TF1_mfcc_3")
     art = from_jax_artifacts(arrays, "cpu")
     assert art.path_i.dtype == torch.int32 and art.feat_a.dtype == torch.float32
     np.testing.assert_array_equal(art.path_i.numpy(), arrays["path_i"])
     tstore = ArtifactStore(str(tmp_path / "t"))
     tstore.save("exemplar_dict_SF12TF1_mfcc_3_torch", **art.to_numpy())
-    ref = jconvert.convert_utterance(cfg, jstore, data, src, nb_file=3, synth_iters=5,
+    ref = jconvert.convert_utterance(jcfg, jstore, data, src, nb_file=3, synth_iters=5,
                                      reference_wav=tar)
     got = tconvert.convert_utterance(cfg, tstore, data, src, nb_file=3, synth_iters=5,
                                      reference_wav=tar, device="cpu")
     _assert_same_conversion(got, ref)
 
 
-def test_fused_path_matches_jax(corpus, cfg, tmp_path):
+def test_fused_path_matches_jax(corpus, cfg, jcfg, tmp_path):
     """The opt-in fused path as a whole: the single-kernel MU solve, Y = H·B
     and the fused (center=False) Griffin-Lim, then the centered ISTFT, JAX
     (Pallas kernels in interpret mode) against the port (the twins on the
@@ -143,15 +154,15 @@ def test_fused_path_matches_jax(corpus, cfg, tmp_path):
     from exemplars_vc_tpu.dsp.stft import istft as jistft
     from exemplars_vc_tpu.factorize.nmf import convert_features as jconvert_features
     from exemplars_vc_tpu.factorize.nmf_pallas import nmf_activations_pallas
-    from exemplars_vc_tpu.io.wav import read_wav
     from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import gl_angles_fused
     from exemplars_vc_tpu_torch.dsp.stft import istft
     from exemplars_vc_tpu_torch.factorize.nmf import convert_features, nmf_activations
+    from exemplars_vc_tpu_torch.io.wav import read_wav
     from exemplars_vc_tpu_torch.pipelines.conv_dicts import extract_stft_complex
 
     data, src, _ = corpus
-    jstore = ArtifactStore(str(tmp_path / "j"))
-    jmake_dictionary(cfg, jstore, data, nb_file=3)
+    jstore = JArtifactStore(str(tmp_path / "j"))
+    jmake_dictionary(jcfg, jstore, data, nb_file=3)
     tstore = ArtifactStore(str(tmp_path / "t"))
     art = from_jax_artifacts(jstore.load("exemplar_dict_SF12TF1_mfcc_3"), "cpu")
     tstore.save("exemplar_dict_SF12TF1_mfcc_3_torch", **art.to_numpy())
@@ -196,7 +207,7 @@ def test_unported_levers_raise(override, corpus, tmp_path):
 
 
 def test_standin_corpus_layout(tmp_path):
-    from exemplars_vc_tpu.io.store import load_speaker
+    from exemplars_vc_tpu_torch.io.store import load_speaker
 
     data, src, tar = build_standin_corpus(str(tmp_path), n_pairs=8)
     for spk in ("SF1", "TF1"):

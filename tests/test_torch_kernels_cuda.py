@@ -5,7 +5,8 @@ one. The file imports no jax, so on a machine without jax it runs alone:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Tolerances: the DTW kernels equal their twins exactly (min/add only); the
+Tolerances: the DTW kernels equal their twins exactly (min/add only), and
+repeated launches give equal bits; the
 NMF kernels (the fused MU iteration too) sum in another order than cuBLAS,
 so one call agrees within a relative error max|kernel − plain| / max|plain|
 of 1e-5. The NMF kernels use no atomics, so repeated launches are compared
@@ -40,23 +41,94 @@ def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ta,tb", [(64, 64), (300, 241), (1408, 1408)])
-def test_dtw_kernels_equal_twins(cuda, ta, tb):
-    rng = np.random.default_rng(ta)
-    n = 3
-    fa = torch.as_tensor(rng.standard_normal((n, ta, 20)).astype(np.float32), device=cuda)
-    fb = torch.as_tensor(rng.standard_normal((n, tb, 20)).astype(np.float32), device=cuda)
-    lens = torch.tensor([[ta, tb], [ta // 2, tb - 3], [5, 7]], dtype=torch.int32, device=cuda)
+def _dtw_lens(ta, tb):
+    """Full lengths, a ragged pair, a short one, and la = 1 / lb = 1 edges."""
+    rows = [[ta, tb], [max(1, ta // 2), max(1, tb - 3)], [min(5, ta), min(7, tb)],
+            [1, tb], [ta, 1], [1, 1]]
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def _dtw_check(cuda, ta, tb, lens, dim=20, seed=0, plan=None):
+    """Both DTW kernels against their twins, byte for byte; returns the
+    kernels' outputs."""
+    rng = np.random.default_rng(seed)
+    n = lens.shape[0]
+    fa = torch.as_tensor(rng.standard_normal((n, ta, dim)).astype(np.float32), device=cuda)
+    fb = torch.as_tensor(rng.standard_normal((n, tb, dim)).astype(np.float32), device=cuda)
+    lens = lens.to(cuda)
     C = pairwise_sqdist(fa, fb).contiguous()
     before = dtw_cuda.dtw_wavefront.launches
-    cost, dirs = dtw_cuda.dtw_wavefront(C, lens)
+    cost, dirs = dtw_cuda.dtw_wavefront(C, lens, plan=plan)
     assert dtw_cuda.dtw_wavefront.launches == before + 1
     cost_p, dirs_p = dtw_cuda.dtw_wavefront_plain(C, lens)
-    assert torch.equal(dirs, dirs_p) and torch.equal(cost, cost_p)
-    for got, ref in zip(dtw_cuda.dtw_backtrace(dirs, lens),
-                        dtw_cuda.dtw_backtrace_plain(dirs, lens)):
+    assert torch.equal(cost, cost_p), (cost, cost_p)
+    assert torch.equal(dirs, dirs_p), int((dirs != dirs_p).sum())
+    before = dtw_cuda.dtw_backtrace.launches
+    paths = dtw_cuda.dtw_backtrace(dirs, lens)
+    assert dtw_cuda.dtw_backtrace.launches == before + 1
+    for got, ref in zip(paths, dtw_cuda.dtw_backtrace_plain(dirs, lens)):
         assert torch.equal(got, ref)
+    return C, lens, cost, dirs, paths
+
+
+# Ta > 1024 and not a multiple of 32 (1409), Ta < Tb and Ta > Tb, Ta = 1 and
+# Tb = 1, Ta not a multiple of 4 (the byte-wise stores and window loads)
+@pytest.mark.cuda
+@pytest.mark.parametrize("ta,tb", [(64, 64), (300, 241), (1408, 1408), (1409, 1300),
+                                   (300, 517), (517, 300), (1, 40), (33, 1), (690, 683)])
+def test_dtw_kernels_equal_twins(cuda, ta, tb):
+    _dtw_check(cuda, ta, tb, _dtw_lens(ta, tb), seed=ta)
+
+
+@pytest.mark.cuda
+def test_dtw_kernels_at_the_mcd_shape(cuda):
+    """The MCD's launch on the main path: one pair of 683 uncentered
+    mel-cepstral frames (order 25) of the 54,995-sample held-out input."""
+    _dtw_check(cuda, 683, 683, torch.tensor([[683, 683]], dtype=torch.int32), dim=26)
+
+
+@pytest.mark.cuda
+def test_dtw_kernels_long_pair(cuda):
+    """The longest source the wrappers take (Ta = 19,370): 8 rows a lane
+    over a cluster of 8 CTAs; a path of ~21k steps through ~90 windows."""
+    ta, tb = dtw_cuda.MAX_TA, 2000
+    assert dtw_cuda.fits_smem(ta) and not dtw_cuda.fits_smem(ta + 1)
+    _dtw_check(cuda, ta, tb, torch.tensor([[ta, tb]], dtype=torch.int32), dim=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cluster", [(1, 4), (1, 8), (2, 3), (4, 2), (8, 1), (8, 8)])
+def test_dtw_wavefront_plans_give_equal_codes(cuda, rows, cluster):
+    """Every rows-a-lane / cluster combination computes the same codes."""
+    ta, tb = 1409, 700
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = dtw_cuda.dtw_wavefront_plan(3, ta, n_sms, rows_per_lane=rows, cluster=cluster)
+    _dtw_check(cuda, ta, tb, _dtw_lens(ta, tb)[:3], seed=rows, plan=plan)
+
+
+@pytest.mark.cuda
+def test_dtw_kernels_are_deterministic(cuda):
+    """Repeated launches give equal bits (no atomics; the warp chain's
+    handshakes order every read after its write)."""
+    C, lens, cost, dirs, paths = _dtw_check(cuda, 1408, 1408, _dtw_lens(1408, 1408))
+    for _ in range(5):
+        c2, d2 = dtw_cuda.dtw_wavefront(C, lens)
+        assert torch.equal(c2, cost) and torch.equal(d2, dirs)
+        for got, ref in zip(dtw_cuda.dtw_backtrace(dirs, lens), paths):
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_dtw_plan_that_cannot_cover_ta_raises(cuda):
+    C = torch.zeros((1, 600, 50), device=cuda)
+    lens = torch.tensor([[600, 50]], dtype=torch.int32, device=cuda)
+    plan = dict(rows_per_lane=1, cluster=1, warps_per_cta=16)     # 512 rows < 600
+    before = dtw_cuda.dtw_wavefront.launches
+    with pytest.raises(RuntimeError, match="dtw_wavefront"):
+        dtw_cuda.dtw_wavefront(C, lens, plan=plan)
+    with pytest.raises(RuntimeError, match="dtw_wavefront"):
+        dtw_cuda.dtw_wavefront(C, lens, plan=dict(plan, rows_per_lane=3, warps_per_cta=8))
+    assert dtw_cuda.dtw_wavefront.launches == before
 
 
 # the edges of the split-K tiling: one row, one row past a 32-row tile, fewer
