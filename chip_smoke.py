@@ -39,7 +39,10 @@ Phases (any failure exits non-zero and prints no result line):
    reset just before and read just after; every kernel of the default path
    must have launched and neither fused kernel, the audio must be finite
    and of the input's length, n_iter ≤ max_iter and the MCD finite. Then
-   three warm runs for audio-seconds per second;
+   three warm runs for audio-seconds per second, and ``torch.profiler`` over
+   one more: its summed device time, busy share and the hand-written
+   kernels' calls and device time (each warm run uses a fresh store, so the
+   dictionary build and its DTW run every time);
 4. the fused path (opt-in, as in the JAX package), counters reset just
    before: on the same corpus and input, ``nmf_activations(fused=True)``
    against the default solve (equal n_iter, H bit-equal: both sum P over the
@@ -61,6 +64,7 @@ real corpus's.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -111,11 +115,12 @@ def wall_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn) -> float | None:
+def device_profile(fn) -> tuple[float | None, dict]:
     """Device time of one ``fn()`` in milliseconds: the summed durations of
     the profiled events that ran on the card (kernels, copies, memsets), None
-    if the profiler saw none. Only device-side events are summed: an aten
-    op's own device time repeats its kernels'."""
+    if the profiler saw none; and, by event name, its calls and milliseconds.
+    Only device-side events are summed: an aten op's own device time repeats
+    its kernels'."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -125,9 +130,18 @@ def device_ms(fn) -> float | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                if ev.device_type == DeviceType.CUDA)
-    return total / 1e3 if total > 0 else None
+    total, per = 0.0, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            total += us
+            calls, t = per.get(ev.name, (0, 0.0))
+            per[ev.name] = (calls + 1, t + us / 1e3)
+    return (total / 1e3 if total > 0 else None), per
+
+
+def device_ms(fn) -> float | None:
+    return device_profile(fn)[0]
 
 
 def fmt_ms(v) -> str:
@@ -194,15 +208,19 @@ def phase_kernels(torch, np, dev) -> dict:
         plan = dtw_wavefront_plan(n, ta, n_sms)
         n_diag = ta + tb - 1
         walked = int(paths_k[2].sum())
-        # least time: C read and every code written once (the wavefront sweeps
-        # all n·(Ta+Tb-1)·Ta cells, 6 float ops each); the backtrace reads
-        # the codes of its walk and writes both padded paths
-        wf = bound(n * ta * tb * 4 + n * n_diag * ta + n * 12, 6 * n * n_diag * ta)
+        # least time: the cells of C inside each pair's lengths read once
+        # (Σ la·lb, this run's lens), the lens read, every code and the costs
+        # written once; every code of the n·(Ta+Tb-1)·Ta output takes 6
+        # float ops. The backtrace reads the codes of its walk and writes both
+        # padded paths
+        cells = int((lens[:, 0].long() * lens[:, 1].long()).sum())
+        wf = bound(4 * cells + n * n_diag * ta + n * 12, 6 * n * n_diag * ta)
         bt = bound(n * 8 + walked + 2 * n * n_diag * 4 + n * 4, 0)
         rec = dict(cost=cost_k, lens=lens, paths=paths_k)
         msg = (f"dtw {name}: N={n} Ta={ta} Tb={tb}: both kernels equal to their twins; plan "
-               f"R={plan['rows_per_lane']} rows a lane, {plan['warps_per_cta']} warps a CTA, "
-               f"cluster {plan['cluster']}; path cells {walked}")
+               f"R={plan['rows_per_lane']} rows a lane, {plan['chunk']}-step chunks, "
+               f"{plan['warps_per_cta']} warps a CTA, cluster {plan['cluster']}; C cells inside "
+               f"the lens {cells}; path cells {walked}")
         if timed:
             wms = cuda_ms(lambda: dtw_wavefront(C, lens))
             bms = cuda_ms(lambda: dtw_backtrace(dirs_k, lens))
@@ -377,16 +395,19 @@ def phase_kernels(torch, np, dev) -> dict:
         f"{plan['smem_bytes']} B shared memory")
     if not (e_l2 <= 1e-4 and float(d_k.mean()) <= 2 * float(d_p.mean()) + 1e-7):
         fail("gl_angles_fused outside tolerance")
-    # bound: each iteration is an inverse and a forward real DFT by table
-    # products, 2·2·bins·n_fft multiply-adds a frame (4·2·bins·n_fft flops);
-    # it reads the magnitudes and phases once and writes the phases
+    # bound: each iteration and frame needs an inverse and a forward real FFT
+    # of n_fft (2.5·n_fft·log2(n_fft) flops each, the usual split-radix
+    # count), the window, overlap-add and normaliser (4·n_fft) and the
+    # per-bin product, momentum and normalisation (12·bins); it reads the
+    # magnitudes and phases once and writes the phases
     out["gl_angles_fused"] = dict(
         max_abs_err=e_gl,
         ms=cuda_ms(lambda: gl_angles_fused(mag, ang, n_fft, hop, 300, 0.9), reps=3),
         plain_ms=cuda_ms(lambda: gl_angles_fused_plain(mag, ang, n_fft, hop, 300, 0.9), reps=3),
         library_ms=None)
     out["gl_angles_fused"]["bound_ms"], out["gl_angles_fused"]["bound_by"] = bound(
-        4 * Fg * nb + 2 * 8 * Fg * nb, 300 * Fg * 4 * 2 * nb * n_fft)
+        4 * Fg * nb + 2 * 8 * Fg * nb,
+        300 * Fg * (2 * 2.5 * n_fft * math.log2(n_fft) + 4 * n_fft + 12 * nb))
     sync_ms = cuda_ms(lambda: grid_sync_probe(plan["grid"], 300, dev), reps=3)
     prod_ms = cuda_ms(lambda: griffin_lim(mag, n_fft=n_fft, hop_length=hop, n_iter=300,
                                           init_phase=ang), reps=3)
@@ -461,6 +482,21 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
     med = statistics.median(warm)
     say(f"main path: warm runs {[round(w, 4) for w in warm]} s, audio {audio_s:.3f} s, "
         f"{audio_s / med:.3f} audio-s/s (median)")
+
+    runs = [len(warm)]
+
+    def fresh():   # a fresh store, so the dictionary build and its DTW run
+        runs[0] += 1
+        convert_utterance(cfg, ArtifactStore(os.path.join(root, f"store{runs[0]}")), data, src,
+                          nb_file=8, device=dev)
+
+    total, per = device_profile(fresh)
+    kernels = {name: (calls, round(ms, 6)) for name, (calls, ms) in per.items()
+               if any(k in name for k in ("dtw_wavefront_kernel", "dtw_backtrace_kernel",
+                                          "nmf_recon_kernel", "nmf_update_kernel"))}
+    say(f"main path: device time of one warm conversion {fmt_ms(total)}"
+        + (f", busy share {total / (med * 1e3):.4f} of the warm median" if total else "")
+        + f"; hand-written kernels (calls, ms) {json.dumps(kernels)}")
     return launches
 
 

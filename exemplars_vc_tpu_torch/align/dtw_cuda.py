@@ -8,9 +8,9 @@ The kernels are ``csrc/dtw_wavefront.cu``. A CUDA tensor goes to the kernel
 codes and paths with vectorised torch ops.
 
 The wavefront kernel is a systolic sweep: each lane of a warp owns R
-consecutive rows and the warps of one pair form a chain through the CTAs of
-a thread-block cluster; :func:`dtw_wavefront_plan` (pure Python) chooses R,
-the cluster size and the warps a CTA.
+consecutive rows (1, or 8 above 4096 rows) and the warps of one pair form a
+chain through the CTAs of a thread-block cluster; :func:`dtw_wavefront_plan`
+(pure Python) chooses R, the cluster size and the warps a CTA.
 
 Direction codes: 0 = diag (i-1, j-1), 1 = up (i-1, j), 2 = left (i, j-1);
 tie order diag < up < left. Layout: ``dirs[n, d, i]`` with ``d = i + j``.
@@ -32,7 +32,11 @@ BIG = 1e30
 MAX_TA = SMEM_LIMIT_BYTES // 12
 DTW_MAX_CLUSTER = 8          # CTAs a pair (the portable cluster size)
 DTW_MAX_WARPS = 16           # warps a CTA
-DTW_ROWS_PER_LANE = (1, 2, 4, 8)
+# rows a lane and steps a chunk of the two compiled variants: one row a lane
+# (measured fastest) covers Ta up to 8 CTAs x 16 warps x 32 lanes = 4096,
+# eight rows a lane (4-step chunks, for their registers) the rest
+DTW_ONE_ROW_MAX_TA = DTW_MAX_CLUSTER * DTW_MAX_WARPS * 32
+DTW_CHUNK = {1: 16, 8: 4}
 
 
 def fits_smem(ta: int) -> bool:
@@ -41,46 +45,27 @@ def fits_smem(ta: int) -> bool:
     return 1 <= ta <= MAX_TA
 
 
-def dtw_chunk(rows_per_lane: int) -> int:
-    """Steps a chunk of the compiled kernel at ``rows_per_lane`` (the warps
-    hand their boundary row over once a chunk): 16 at one row a lane, 8 at
-    two, 4 at four and eight (their registers)."""
-    return {1: 16, 2: 8, 4: 4, 8: 4}[rows_per_lane]
-
-
-def dtw_wavefront_plan(n: int, ta: int, n_sms: int, rows_per_lane: int | None = None,
-                       cluster: int | None = None) -> dict:
+def dtw_wavefront_plan(n: int, ta: int, n_sms: int) -> dict:
     """Launch plan of the wavefront kernel for ``n`` pairs of ``ta`` source
     frames on a card of ``n_sms`` SMs.
 
     One pair is a chain of ``warps = ceil(ta / (32 R))`` warps, R rows a
-    lane, spread over a cluster of ``cluster`` CTAs of ``warps_per_cta``
-    warps (warps of a CTA hand over their boundary row through a pair
-    barrier, CTAs through st.async and mbarriers). The cluster aims at
-    ``n_sms // n`` CTAs a pair, at most 8, so that few rows share an SM; R
-    is the smallest (1 first: measured fastest) that leaves at most 16 warps
-    a CTA, widening the cluster to 8 where that is needed. ``rows_per_lane``
-    and ``cluster`` fix either. Raises ValueError where no plan covers
-    ``ta``."""
+    lane (1 up to 4096 rows, else 8), spread over a cluster of CTAs of
+    ``warps_per_cta`` warps (warps of a CTA hand over their boundary row
+    through a pair barrier, CTAs through st.async and mbarriers). The
+    cluster aims at ``n_sms // n`` CTAs a pair, at most 8, so that few rows
+    share an SM, and widens up to 8 where a CTA would need more than 16
+    warps. Raises ValueError outside ``1 <= ta <= MAX_TA``."""
     if not fits_smem(ta):
         raise ValueError(f"dtw_wavefront: Ta={ta} is outside 1..{MAX_TA}")
-    rows = (rows_per_lane,) if rows_per_lane is not None else DTW_ROWS_PER_LANE
-    if any(r not in DTW_ROWS_PER_LANE for r in rows):
-        raise ValueError(f"rows_per_lane must be one of {DTW_ROWS_PER_LANE}")
-    if cluster is not None and not 1 <= cluster <= DTW_MAX_CLUSTER:
-        raise ValueError(f"cluster must be 1..{DTW_MAX_CLUSTER}")
-    target = cluster or min(DTW_MAX_CLUSTER, max(1, n_sms // max(n, 1)))
-    for size in ((cluster,) if cluster else range(target, DTW_MAX_CLUSTER + 1)):
-        for r in rows:
-            warps = -(-ta // (32 * r))
-            wpc = -(-warps // min(size, warps))
-            if wpc <= DTW_MAX_WARPS:
-                ctas = -(-warps // wpc)
-                return dict(rows_per_lane=r, chunk=dtw_chunk(r), warps=warps,
-                            warps_per_cta=wpc, cluster=ctas, threads=32 * wpc,
-                            grid=(n * ctas, 1, 1))
-    raise ValueError(f"dtw_wavefront: no plan covers Ta={ta} with rows_per_lane={rows_per_lane}, "
-                     f"cluster={cluster}")
+    r = 1 if ta <= DTW_ONE_ROW_MAX_TA else 8
+    warps = -(-ta // (32 * r))
+    target = min(DTW_MAX_CLUSTER, max(1, n_sms // max(n, 1)))
+    size = max(target, -(-warps // DTW_MAX_WARPS))
+    wpc = -(-warps // min(size, warps))
+    ctas = -(-warps // wpc)
+    return dict(rows_per_lane=r, chunk=DTW_CHUNK[r], warps=warps, warps_per_cta=wpc,
+                cluster=ctas, threads=32 * wpc, grid=(n * ctas, 1, 1))
 
 
 def _check_lens(lens: torch.Tensor, n: int, ta: int, tb: int, device) -> None:
@@ -136,12 +121,12 @@ def dtw_wavefront_plain(C: torch.Tensor, lens: torch.Tensor):
     return final, dirs
 
 
-def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor, plan: dict | None = None):
+def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor):
     """Batched wavefront DP; same contract as :func:`dtw_wavefront_plain`.
 
-    On a CUDA tensor this launches ``evc_dtw_wavefront`` with ``plan``
-    (default :func:`dtw_wavefront_plan` for this card) and counts the launch
-    in ``dtw_wavefront.launches``; the C entry refuses a plan that does not
+    On a CUDA tensor this launches ``evc_dtw_wavefront`` with the
+    :func:`dtw_wavefront_plan` of this card and counts the launch in
+    ``dtw_wavefront.launches``; the C entry refuses a plan that does not
     cover Ta, and the call raises."""
     if C.device.type == "cpu":
         return dtw_wavefront_plain(C, lens)
@@ -155,9 +140,8 @@ def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor, plan: dict | None = None)
         raise ValueError(f"dtw_wavefront: Ta={ta} is more than {MAX_TA} frames, the range "
                          f"of three float32 wavefronts in {SMEM_LIMIT_BYTES} B of shared memory")
     _check_lens(lens, n, ta, tb, C.device)
-    if plan is None:
-        plan = dtw_wavefront_plan(n, ta, torch.cuda.get_device_properties(C.device)
-                                  .multi_processor_count)
+    plan = dtw_wavefront_plan(n, ta, torch.cuda.get_device_properties(C.device)
+                              .multi_processor_count)
     lib = load_library("dtw_wavefront")
     fn = lib.evc_dtw_wavefront
     fn.restype = ctypes.c_int

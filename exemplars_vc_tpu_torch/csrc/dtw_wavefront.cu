@@ -17,7 +17,8 @@
 //   BIG throughout; the origin's diag is 0, which gives best = 0, code 0.
 //
 // What bounds the wavefront: a chain of Ta+Tb-1 dependent diagonals. Its
-// bytes (C read once, the codes written once) take ~28 us at 8 x 1408^2; a
+// bytes (the cells of C inside the pair's lengths read once, every code
+// written once) take ~25 us for the main path's 8 pairs of <= 1408 rows; a
 // step costs a few dependent float ops plus whatever hands rows over. The
 // design (measured on an H100, see PERF.md):
 //   - a systolic sweep: lane l of chain warp g owns R consecutive rows
@@ -25,7 +26,7 @@
 //     Rows inside a lane read their neighbour from registers; the lane's
 //     first row reads the previous lane's last row through __shfl_up_sync,
 //     so within a warp no barrier is needed at all;
-//   - steps go in chunks of K (16 at R = 1, 8 at R = 2, 4 at R >= 4). Within a CTA, warp g
+//   - steps go in chunks of K (16 at R = 1, 4 at R = 8). Within a CTA, warp g
 //     hands its last row to warp g+1 a chunk at a time, through a
 //     double-buffered chunk in shared memory and a named barrier of the warp
 //     pair (bar.sync id, 64): warp g+1 runs one chunk behind warp g, no warp
@@ -51,16 +52,18 @@
 //   - a step has no branch: stores are predicated, the final cost is kept by
 //     a select, and chunks away from the edges (j < 0, the last diagonal, the
 //     final cost) skip those selects.
-// What bounds it now (measured at R = 1, 8-step chunks, by dropping one part
-// at a time): ~316 cycles a step, of which the steps alone ~84; the waits
-// and hand-offs along the warp chain ~120 (a chain of 44 warps for the main
-// path pays its fill too), picking the costs out of their blocks and
-// waiting for their loads ~70, the shuffle ~35, the flush and load issue
-// ~20. A 4-deep in-CTA hand-off moved the wait rather than removing it, and
-// fetching three chunks ahead spilled registers; both were slower and are
-// not kept. 16-step chunks at R = 1 took ~6 % off; 32-step ones were slower
-// (the chain's fill, ~44 warps x a chunk, grows with the chunk).
-// Ta up to 8 CTAs x 16 warps x 32 lanes x 8 rows = 32,768 has a plan.
+// What bounds it (measured at R = 1 by dropping one part at a time, with
+// the 8-step chunks the kernel had before they grew to 16): ~316 cycles a
+// step, of which the steps alone ~84; the waits and hand-offs along the
+// warp chain ~120 (a chain of 44 warps for the main path pays its fill
+// too), picking the costs out of their blocks and waiting for their loads
+// ~70, the shuffle ~35, the flush and load issue ~20. A 4-deep in-CTA
+// hand-off moved the wait rather than removing it, and fetching three
+// chunks ahead spilled registers; both were slower and are not kept.
+// 16-step chunks at R = 1 took ~6 % off the 8-step ones; 32-step ones were
+// slower (the chain's fill, ~44 warps x a chunk, grows with the chunk).
+// Two variants are compiled: R = 1 covers Ta up to 8 CTAs x 16 warps x 32
+// lanes = 4096, R = 8 up to 32,768 (2, 4 rows a lane were slower).
 //
 // The backtrace walks the path once, from (la-1, lb-1) to the origin, with
 // one CTA a pair. The codes it reads are staged into shared memory a window
@@ -180,6 +183,7 @@ struct DtwShared {
 template <int R, int K>
 struct DtwLane {
   static_assert(K % 4 == 0 && K <= EVC_DTW_MAX_K, "chunk");
+  static_assert(R == 1 || R == 8, "rows a lane");
   static constexpr int NB = K / 4;   // new blocks a chunk
   const float* Cn;
   int8_t* dn;
@@ -354,8 +358,6 @@ struct DtwLane {
       }
       uint8_t* st = stage + k * 32 * R + lane * R;
       if (R == 1) *st = (uint8_t)pack;
-      if (R == 2) *reinterpret_cast<uint16_t*>(st) = (uint16_t)pack;
-      if (R == 4) *reinterpret_cast<uint32_t*>(st) = (uint32_t)pack;
       if (R == 8) *reinterpret_cast<unsigned long long*>(st) = pack;
       evc_sts_if(pair_out + 4 * k, v[R - 1], pair_lane);
       evc_st_async_if(link_buf + 4 * k, __float_as_uint(v[R - 1]), link_full, link_lane);
@@ -661,7 +663,7 @@ const char* evc_error_string(int code) {
 }
 
 // C (n, ta, tb) f32, lens (n, 2) i32 -> cost (n,) f32, dirs (n, ta+tb-1, ta) i8.
-// The plan: rows a lane (1, 2, 4 or 8), CTAs a pair's cluster (1..8), warps
+// The plan: rows a lane (1 or 8), CTAs a pair's cluster (1..8), warps
 // a CTA (1..16), covering at least ta rows; any other plan is refused
 // (cudaErrorInvalidValue) before a launch.
 int evc_dtw_wavefront(const float* C, const int* lens, int n, int ta, int tb, int rows_per_lane,
@@ -674,8 +676,6 @@ int evc_dtw_wavefront(const float* C, const int* lens, int n, int ta, int tb, in
   cudaError_t e;
   switch (rows_per_lane) {
     case 1: e = evc_launch_wavefront<1, 16>(C, lens, n, ta, tb, cluster, warps, cost, dirs, s); break;
-    case 2: e = evc_launch_wavefront<2, 8>(C, lens, n, ta, tb, cluster, warps, cost, dirs, s); break;
-    case 4: e = evc_launch_wavefront<4, 4>(C, lens, n, ta, tb, cluster, warps, cost, dirs, s); break;
     case 8: e = evc_launch_wavefront<8, 4>(C, lens, n, ta, tb, cluster, warps, cost, dirs, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -687,13 +687,11 @@ int evc_dtw_wavefront(const float* C, const int* lens, int n, int ta, int tb, in
 // i32 padded with -1, path_len (n,) i32.
 int evc_dtw_backtrace(const int8_t* dirs, const int* lens, int n, int ta, int tb, int* path_i,
                       int* path_j, int* path_len, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dtw_backtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)EVC_BT_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
+  // the opt-in to more than 48 KB of shared memory is a setting of the
+  // current device: made on every call, so any card and any thread has it
+  const cudaError_t e = cudaFuncSetAttribute(
+      dtw_backtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)EVC_BT_SMEM);
+  if (e != cudaSuccess) return (int)e;
   dtw_backtrace_kernel<<<n, EVC_BT_THREADS, EVC_BT_SMEM, (cudaStream_t)stream>>>(
       dirs, lens, ta, tb, path_i, path_j, path_len);
   return (int)cudaGetLastError();

@@ -48,7 +48,7 @@ def _dtw_lens(ta, tb):
     return torch.tensor(rows, dtype=torch.int32)
 
 
-def _dtw_check(cuda, ta, tb, lens, dim=20, seed=0, plan=None):
+def _dtw_check(cuda, ta, tb, lens, dim=20, seed=0):
     """Both DTW kernels against their twins, byte for byte; returns the
     kernels' outputs."""
     rng = np.random.default_rng(seed)
@@ -58,7 +58,7 @@ def _dtw_check(cuda, ta, tb, lens, dim=20, seed=0, plan=None):
     lens = lens.to(cuda)
     C = pairwise_sqdist(fa, fb).contiguous()
     before = dtw_cuda.dtw_wavefront.launches
-    cost, dirs = dtw_cuda.dtw_wavefront(C, lens, plan=plan)
+    cost, dirs = dtw_cuda.dtw_wavefront(C, lens)
     assert dtw_cuda.dtw_wavefront.launches == before + 1
     cost_p, dirs_p = dtw_cuda.dtw_wavefront_plain(C, lens)
     assert torch.equal(cost, cost_p), (cost, cost_p)
@@ -97,13 +97,14 @@ def test_dtw_kernels_long_pair(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,cluster", [(1, 4), (1, 8), (2, 3), (4, 2), (8, 1), (8, 8)])
-def test_dtw_wavefront_plans_give_equal_codes(cuda, rows, cluster):
-    """Every rows-a-lane / cluster combination computes the same codes."""
-    ta, tb = 1409, 700
-    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = dtw_cuda.dtw_wavefront_plan(3, ta, n_sms, rows_per_lane=rows, cluster=cluster)
-    _dtw_check(cuda, ta, tb, _dtw_lens(ta, tb)[:3], seed=rows, plan=plan)
+@pytest.mark.parametrize("n,ta,tb", [(3, 1409, 700), (40, 1409, 300), (132, 512, 64),
+                                     (1, 4097, 300), (2, 4096, 50)])
+def test_dtw_wavefront_plans_give_equal_codes(cuda, n, ta, tb):
+    """The plans the pair count and Ta lead to (clusters of 8, 3 and 1 CTAs
+    at one row a lane, eight rows a lane past 4096) compute the same codes."""
+    lens = _dtw_lens(ta, tb)
+    lens = lens[torch.arange(n) % lens.shape[0]]
+    _dtw_check(cuda, ta, tb, lens, dim=4, seed=n + ta)
 
 
 @pytest.mark.cuda
@@ -119,15 +120,17 @@ def test_dtw_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.cuda
-def test_dtw_plan_that_cannot_cover_ta_raises(cuda):
+def test_dtw_plan_that_cannot_cover_ta_raises(cuda, monkeypatch):
+    """The C entry refuses a plan that does not cover Ta or names a variant
+    that is not compiled, and the wrapper raises without counting a launch."""
     C = torch.zeros((1, 600, 50), device=cuda)
     lens = torch.tensor([[600, 50]], dtype=torch.int32, device=cuda)
     plan = dict(rows_per_lane=1, cluster=1, warps_per_cta=16)     # 512 rows < 600
     before = dtw_cuda.dtw_wavefront.launches
-    with pytest.raises(RuntimeError, match="dtw_wavefront"):
-        dtw_cuda.dtw_wavefront(C, lens, plan=plan)
-    with pytest.raises(RuntimeError, match="dtw_wavefront"):
-        dtw_cuda.dtw_wavefront(C, lens, plan=dict(plan, rows_per_lane=3, warps_per_cta=8))
+    for bad in (plan, dict(plan, rows_per_lane=2, warps_per_cta=10)):
+        monkeypatch.setattr(dtw_cuda, "dtw_wavefront_plan", lambda n, ta, n_sms, p=bad: p)
+        with pytest.raises(RuntimeError, match="dtw_wavefront"):
+            dtw_cuda.dtw_wavefront(C, lens)
     assert dtw_cuda.dtw_wavefront.launches == before
 
 

@@ -2,7 +2,7 @@
 """Time the port's DTW kernels against an earlier design of the same source,
 on one GPU, in turns (earlier, current, current, earlier).
 
-    python3 tools/dtw_ab_torch.py --base DIR [--sweep] [--out FILE]
+    python3 tools/dtw_ab_torch.py --base DIR [--out FILE]
 
 ``DIR`` is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a git-ignored directory);
@@ -12,9 +12,8 @@ entries (ctypes) on the same inputs and must give equal bytes (codes, costs,
 paths). Shapes: the main path's 8 pairs × 1408 frames (lengths 1100–1408,
 20 MFCC), the MCD's one pair of 683 × 683 (26 mel-cepstral coefficients), and
 one long pair of 19,370 × 2000. Times are CUDA events: the median of 7 single
-launches and of 5 runs of 20 back-to-back launches (per launch). ``--sweep``
-also times the current wavefront under other plans (rows a lane × cluster).
-Prints one JSON object a line; ``--out`` writes them all as one JSON list.
+launches and of 5 runs of 20 back-to-back launches (per launch). The base's
+C entries are those of the first design (no plan arguments). Prints one JSON object a line; ``--out`` writes them all as one JSON list.
 """
 
 from __future__ import annotations
@@ -100,14 +99,14 @@ class Designs:
                     for k in ("base", "cur")}
         self.stream = torch.cuda.current_stream().cuda_stream
 
-    def wavefront(self, which, plan=None):
+    def wavefront(self, which):
         cost, dirs = self.out[which][:2]
         if which == "base":
             code = self.base.evc_dtw_wavefront(self.C.data_ptr(), self.lens.data_ptr(), self.n,
                                                self.ta, self.tb, cost.data_ptr(),
                                                dirs.data_ptr(), self.stream)
         else:
-            p = plan or self.plan
+            p = self.plan
             code = self.cur.evc_dtw_wavefront(self.C.data_ptr(), self.lens.data_ptr(), self.n,
                                               self.ta, self.tb, p["rows_per_lane"],
                                               p["cluster"], p["warps_per_cta"], cost.data_ptr(),
@@ -126,7 +125,6 @@ class Designs:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", required=True, type=Path)
-    ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -172,18 +170,6 @@ def main() -> None:
               **{k: [round(x, 6) for x in v] for k, v in t.items()}})
         if not equal:
             sys.exit(f"{name}: the designs disagree")
-        if args.sweep and ta < 10_000:
-            for r in (1, 2, 4, 8):
-                for cl in (1, 2, 4, 8):
-                    try:
-                        p = dtw_cuda.dtw_wavefront_plan(n, ta, n_sms, rows_per_lane=r, cluster=cl)
-                    except ValueError:
-                        continue
-                    ms = event_ms(lambda p=p: ds.wavefront("cur", p), 5, 20)
-                    torch.cuda.synchronize()
-                    ok = torch.equal(ds.out["cur"][1], ds.out["base"][1])
-                    emit({"shape": name, "sweep_plan": p, "wavefront_batched_ms": round(ms, 6),
-                          "equal_bytes": ok, "us_per_diagonal": round(ms * 1e3 / n_diag, 5)})
         del ds, C
         torch.cuda.empty_cache()
     if args.out:
