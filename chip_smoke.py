@@ -166,6 +166,47 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def gl_yardstick(torch, mag, ang0, n_fft: int, hop: int, n_iter: int, momentum: float):
+    """The library yardstick of ``gl_angles_fused`` (its ``library_ms``):
+    the twin's center=False iteration written with ``torch.fft.irfft`` /
+    ``rfft`` and ``F.fold``, ``n_iter`` of them captured as one CUDA graph.
+    Returns (replay, angles): each replay of the graph recomputes the
+    angles from ``ang0``. The port never calls it."""
+    import torch.nn.functional as Fn
+    from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import _inv_wsum
+    from exemplars_vc_tpu_torch.dsp.windows import get_window
+
+    dev, F = mag.device, mag.shape[0]
+    L = n_fft + hop * (F - 1)
+    w = get_window("hann", n_fft, device=dev)
+    inv_w = torch.as_tensor(_inv_wsum(F, n_fft, hop, "hann").reshape(-1), device=dev)
+    alpha = momentum / (1.0 + momentum)
+    mag = torch.clamp(mag, min=0.0).float()
+    ang = ang0.to(torch.complex64).clone()
+    prev = torch.zeros_like(ang)
+
+    def loop(k):
+        a, p = ang, prev
+        for _ in range(k):
+            frames = torch.fft.irfft(mag * a, n=n_fft) * w
+            y = Fn.fold(frames.T[None], output_size=(1, L), kernel_size=(1, n_fft),
+                        stride=(1, hop)).reshape(L) * inv_w
+            rebuilt = torch.fft.rfft(y.unfold(0, n_fft, hop) * w)
+            t = rebuilt - alpha * p
+            a, p = t / torch.clamp(torch.abs(t), min=1e-16), rebuilt
+        return a
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):   # cuFFT's plans before the capture
+        loop(1)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = loop(n_iter)
+    return graph.replay, out
+
+
 def phase_kernels(torch, np, dev) -> dict:
     from exemplars_vc_tpu_torch.align import dtw_cuda
     from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
@@ -174,7 +215,8 @@ def phase_kernels(torch, np, dev) -> dict:
         dtw_wavefront_plan)
     from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
     from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import (
-        gl_angles_fused, gl_angles_fused_plain, gl_fused_plan, grid_sync_probe)
+        gl_angles_fused, gl_angles_fused_plain, gl_fused_plan, gl_fused_resident,
+        grid_sync_probe)
     from exemplars_vc_tpu_torch.factorize.nmf_cuda import (
         co_resident_clusters, nmf_mu_fused, nmf_mu_fused_plain, nmf_mu_fused_plan, nmf_recon,
         nmf_recon_plain, nmf_recon_plan, nmf_update, nmf_update_plain, nmf_update_plan)
@@ -187,7 +229,7 @@ def phase_kernels(torch, np, dev) -> dict:
     # MFCC) and the MCD's (one pair of 683 mel-cepstral frames, order 25),
     # timed; then the edges: Ta > 1024 and not a multiple of 32, Ta < Tb,
     # Ta > Tb, la = 1 and lb = 1, and the longest Ta the wrappers take
-    def dtw_case(name, n, ta, tb, dim, lens_rows, timed):
+    def dtw_case(name, n, ta, tb, dim, lens_rows, timed, plain_reps=3):
         fa = torch.as_tensor(rng.standard_normal((n, ta, dim)).astype(np.float32), device=dev)
         fb = torch.as_tensor(rng.standard_normal((n, tb, dim)).astype(np.float32), device=dev)
         lens = torch.as_tensor(np.asarray(lens_rows, np.int32), device=dev)
@@ -226,12 +268,13 @@ def phase_kernels(torch, np, dev) -> dict:
             bms = cuda_ms(lambda: dtw_backtrace(dirs_k, lens))
             rec.update(
                 wavefront=dict(max_abs_err=float((cost_k - cost_p).abs().max()), ms=wms,
-                               plain_ms=cuda_ms(lambda: dtw_wavefront_plain(C, lens), reps=3),
+                               plain_ms=cuda_ms(lambda: dtw_wavefront_plain(C, lens),
+                                                reps=plain_reps),
                                bound_ms=wf[0], bound_by=wf[1], library_ms=None),
                 backtrace=dict(max_abs_err=float(max((a - b).abs().max()
                                                      for a, b in zip(paths_k, paths_p))),
                                ms=bms, plain_ms=cuda_ms(lambda: dtw_backtrace_plain(dirs_k, lens),
-                                                        reps=3),
+                                                        reps=plain_reps),
                                bound_ms=bt[0], bound_by=bt[1], library_ms=None))
             msg += (f"\n  wavefront {wms:.4f} ms ({wms * 1e3 / n_diag:.4f} us a diagonal "
                     f"step), bound {wf[0]:.4f} ms ({wf[1]}), roofline share {wf[0] / wms:.4f}; "
@@ -255,7 +298,21 @@ def phase_kernels(torch, np, dev) -> dict:
     for name, ta, tb in (("Ta>1024, Ta%32!=0", 1409, 1300), ("Ta<Tb", 300, 517),
                          ("Ta>Tb", 517, 300)):
         dtw_case(name, 4, ta, tb, 20, [[ta, tb], [1, tb], [ta, 1], [1, 1]], timed=False)
-    dtw_case("longest Ta", 1, dtw_cuda.MAX_TA, 2000, 4, [[dtw_cuda.MAX_TA, 2000]], timed=False)
+    top = dtw_case("longest Ta", 1, dtw_cuda.MAX_TA, 2000, 4, [[dtw_cuda.MAX_TA, 2000]],
+                   timed=True, plain_reps=1)
+    for name in ("wavefront", "backtrace"):
+        r = top[name]
+        say(f"  dtw_{name} at Ta = {dtw_cuda.MAX_TA} x 2000: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    del top
+    try:
+        dtw_wavefront(torch.zeros((1, dtw_cuda.MAX_TA + 1, 2), device=dev),
+                      torch.tensor([[1, 1]], dtype=torch.int32, device=dev))
+        fail(f"dtw_wavefront took Ta = {dtw_cuda.MAX_TA + 1}")
+    except ValueError as e:
+        if "queue 1 item 12" not in str(e):
+            fail(f"the refusal of Ta = {dtw_cuda.MAX_TA + 1} names no ROADMAP item: {e}")
+        say(f"dtw Ta = {dtw_cuda.MAX_TA + 1}: refused ({e})")
     out["_dtw_mcd"] = mcd
 
     # NMF at the main path's shapes
@@ -373,50 +430,85 @@ def phase_kernels(torch, np, dev) -> dict:
         fail("nmf kernels outside tolerance at K = 115,200")
     del Ab, Hb, Numb, Pb
 
-    # the fused Griffin-Lim at the main path's shape
-    Fg, n_fft, hop = 688, 400, 80
+    # the fused Griffin-Lim against its twins, 6 iterations under the PERF.md
+    # §2 gates, at n_fft 48 (M = 24 = 8 x 3, a radix-3 pass) and at the main
+    # path's shape; another tile and the grid-sync barrier give equal bits
+    def gl_case(Fg, n_fft, hop):
+        nb = n_fft // 2 + 1
+        mag = torch.as_tensor(np.abs(rng.standard_normal((Fg, nb))).astype(np.float32),
+                              device=dev)
+        ang = torch.as_tensor(np.exp(2j * np.pi * rng.random((Fg, nb))).astype(np.complex64),
+                              device=dev)
+        g6 = gl_angles_fused(mag, ang, n_fft, hop, 6, 0.9)
+        p6 = gl_angles_fused_plain(mag, ang, n_fft, hop, 6, 0.9)
+        r6 = gl_angles_fused_plain(mag.double(), ang.to(torch.complex128), n_fft, hop, 6, 0.9)
+        plan = gl_fused_plan(Fg, n_fft, hop, n_sms)
+        others = (dict(plan, tile=plan["tile"] + 2), dict(plan, barrier="grid"))
+        same = all(torch.equal(gl_angles_fused(mag, ang, n_fft, hop, 6, 0.9, _plan=o), g6)
+                   for o in others)
+        torch.cuda.synchronize()
+        e_gl = float((g6 - p6).abs().max())
+        e_l2 = float(torch.linalg.norm(g6 - p6) / torch.linalg.norm(p6))
+        d_k, d_p = (g6 - r6).abs(), (p6 - r6).abs()
+        card = gl_fused_resident(plan, n_fft, hop)
+        say(f"gl_angles_fused: F={Fg} bins={nb} n_fft={n_fft} hop={hop}, 6 iterations: kernel "
+            f"vs twin max |phase diff| {e_gl:.3g}, rel L2 {e_l2:.3g} (limit 1e-4); against "
+            f"float64, mean / max: kernel {float(d_k.mean()):.3g} / {float(d_k.max()):.3g}, "
+            f"float32 twin {float(d_p.mean()):.3g} / {float(d_p.max()):.3g} (limit: kernel mean "
+            f"<= 2x the twin's + 1e-7); tile {plan['tile']} + 2 and the grid-sync barrier "
+            f"bit-equal: {same}; plan: {plan['grid']} CTAs of {plan['threads']} threads, tile "
+            f"{plan['tile']}, radices {plan['radices']}, {card['smem_bytes']} B shared memory, "
+            f"{card['resident']} CTAs fit at once")
+        if not (e_l2 <= 1e-4 and float(d_k.mean()) <= 2 * float(d_p.mean()) + 1e-7 and same):
+            fail(f"gl_angles_fused outside tolerance at n_fft {n_fft}, or plans disagree")
+        return mag, ang, plan, e_gl, p6
+
+    gl_case(300, 48, 16)
+    Fg, n_fft, hop, n_it = 688, 400, 80, 300
     nb = n_fft // 2 + 1
-    mag = torch.as_tensor(np.abs(rng.standard_normal((Fg, nb))).astype(np.float32), device=dev)
-    ang = torch.as_tensor(np.exp(2j * np.pi * rng.random((Fg, nb))).astype(np.complex64),
-                          device=dev)
-    g6 = gl_angles_fused(mag, ang, n_fft, hop, 6, 0.9)
-    p6 = gl_angles_fused_plain(mag, ang, n_fft, hop, 6, 0.9)
-    r6 = gl_angles_fused_plain(mag.double(), ang.to(torch.complex128), n_fft, hop, 6, 0.9)
+    mag, ang, plan, e_gl, p6 = gl_case(Fg, n_fft, hop)
+    replay6, y6 = gl_yardstick(torch, mag, ang, n_fft, hop, 6, 0.9)
+    replay6()
     torch.cuda.synchronize()
-    e_gl = float((g6 - p6).abs().max())
-    e_l2 = float(torch.linalg.norm(g6 - p6) / torch.linalg.norm(p6))
-    d_k, d_p = (g6 - r6).abs(), (p6 - r6).abs()
-    plan = gl_fused_plan(Fg, n_fft, hop)
-    say(f"gl_angles_fused: F={Fg} bins={nb} n_fft={n_fft} hop={hop}, 6 iterations: kernel vs "
-        f"twin max |phase diff| {e_gl:.3g}, rel L2 {e_l2:.3g} (limit 1e-4); against float64, "
-        f"mean / max: kernel {float(d_k.mean()):.3g} / {float(d_k.max()):.3g}, float32 twin "
-        f"{float(d_p.mean()):.3g} / {float(d_p.max()):.3g} (limit: kernel mean <= 2x the "
-        f"twin's + 1e-7); grid {plan['grid']} blocks of {plan['resident']} co-resident, "
-        f"{plan['smem_bytes']} B shared memory")
-    if not (e_l2 <= 1e-4 and float(d_k.mean()) <= 2 * float(d_p.mean()) + 1e-7):
-        fail("gl_angles_fused outside tolerance")
+    e_y = float(torch.linalg.norm(y6 - p6) / torch.linalg.norm(p6))
+    say(f"  graphed cuFFT yardstick, 6 iterations: rel L2 to the twin {e_y:.3g} (limit 1e-4)")
+    if e_y > 1e-4:
+        fail("the graphed cuFFT yardstick does not compute the twin's iteration")
+    replay300, _ = gl_yardstick(torch, mag, ang, n_fft, hop, n_it, 0.9)
+    # the two barriers in turns (neighbour, grid, grid, neighbour)
+    turns = {"neighbour": [], "grid": []}
+    for b in ("neighbour", "grid", "grid", "neighbour"):
+        p_b = dict(plan, barrier=b)
+        turns[b].append(cuda_ms(lambda: gl_angles_fused(mag, ang, n_fft, hop, n_it, 0.9,
+                                                        _plan=p_b), reps=5))
+    out["gl_angles_fused"] = dict(
+        max_abs_err=e_gl, ms=statistics.mean(turns[plan["barrier"]]),
+        plain_ms=cuda_ms(lambda: gl_angles_fused_plain(mag, ang, n_fft, hop, n_it, 0.9), reps=3),
+        library_ms=cuda_ms(replay300, reps=5))
     # bound: each iteration and frame needs an inverse and a forward real FFT
     # of n_fft (2.5·n_fft·log2(n_fft) flops each, the usual split-radix
     # count), the window, overlap-add and normaliser (4·n_fft) and the
     # per-bin product, momentum and normalisation (12·bins); it reads the
     # magnitudes and phases once and writes the phases
-    out["gl_angles_fused"] = dict(
-        max_abs_err=e_gl,
-        ms=cuda_ms(lambda: gl_angles_fused(mag, ang, n_fft, hop, 300, 0.9), reps=3),
-        plain_ms=cuda_ms(lambda: gl_angles_fused_plain(mag, ang, n_fft, hop, 300, 0.9), reps=3),
-        library_ms=None)
     out["gl_angles_fused"]["bound_ms"], out["gl_angles_fused"]["bound_by"] = bound(
         4 * Fg * nb + 2 * 8 * Fg * nb,
-        300 * Fg * (2 * 2.5 * n_fft * math.log2(n_fft) + 4 * n_fft + 12 * nb))
-    sync_ms = cuda_ms(lambda: grid_sync_probe(plan["grid"], 300, dev), reps=3)
-    prod_ms = cuda_ms(lambda: griffin_lim(mag, n_fft=n_fft, hop_length=hop, n_iter=300,
-                                          init_phase=ang), reps=3)
-    prod_dev = device_ms(lambda: griffin_lim(mag, n_fft=n_fft, hop_length=hop, n_iter=300,
-                                             init_phase=ang))
-    say(f"  300 iterations: fused kernel {out['gl_angles_fused']['ms']:.4f} ms, twin "
-        f"{out['gl_angles_fused']['plain_ms']:.4f} ms, production griffin_lim {prod_ms:.4f} ms "
-        f"(device time {fmt_ms(prod_dev)}); floor of 300 grid syncs on {plan['grid']} blocks "
-        f"{sync_ms:.4f} ms ({sync_ms / 300 * 1e3:.3f} us each)")
+        n_it * Fg * (2 * 2.5 * n_fft * math.log2(n_fft) + 4 * n_fft + 12 * nb))
+    sync_ms = cuda_ms(lambda: grid_sync_probe(plan["grid"], n_it, dev), reps=3)
+    prod = {}
+    for graph in (True, False):
+        def run(graph=graph):
+            griffin_lim(mag, n_fft=n_fft, hop_length=hop, n_iter=n_it, init_phase=ang,
+                        _graph=graph)
+        prod[graph] = (cuda_ms(run, reps=3), device_ms(run))
+    say(f"  {n_it} iterations: fused kernel, neighbour hand-off "
+        f"{[round(t, 4) for t in turns['neighbour']]} ms, grid sync "
+        f"{[round(t, 4) for t in turns['grid']]} ms (plan: {plan['barrier']}); twin "
+        f"{out['gl_angles_fused']['plain_ms']:.4f} ms; graphed cuFFT yardstick "
+        f"{out['gl_angles_fused']['library_ms']:.4f} ms; floor of {n_it} grid syncs on "
+        f"{plan['grid']} blocks {sync_ms:.4f} ms ({sync_ms / n_it * 1e3:.3f} us each); "
+        f"production griffin_lim (center=True) graphed {prod[True][0]:.4f} ms (device "
+        f"{fmt_ms(prod[True][1])}), eager {prod[False][0]:.4f} ms (device "
+        f"{fmt_ms(prod[False][1])})")
     mcd = out.pop("_dtw_mcd")
     for name, r in out.items():
         say(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
@@ -433,8 +525,10 @@ def phase_kernels(torch, np, dev) -> dict:
 def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
                     fused: dict) -> dict:
     from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.dsp import griffin_lim as gl_mod
     from exemplars_vc_tpu_torch.io.store import ArtifactStore
     from exemplars_vc_tpu_torch.io.wav import read_wav
+    from exemplars_vc_tpu_torch.pipelines.conv_dicts import extract_stft_complex
     from exemplars_vc_tpu_torch.pipelines.convert import convert_utterance
 
     data, src, tar = corpus
@@ -447,23 +541,29 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
     x_in, sr = read_wav(src)
     audio_s += len(x_in) / sr
 
+    gl_mod._loops.clear()    # phase 2 captured graphs of this shape
+    captures = gl_mod.griffin_lim.captures
     for fn in (*counted.values(), *fused.values()):
         fn.launches = 0
     t0 = time.perf_counter()
     res = convert_utterance(cfg, ArtifactStore(os.path.join(root, "store0")), data, src,
                             nb_file=8, reference_wav=tar, sync_stages=True, device=dev)
     cold_s = time.perf_counter() - t0
+    captures_cold = gl_mod.griffin_lim.captures - captures
+    captures = gl_mod.griffin_lim.captures
     launches = {name: fn.launches for name, fn in counted.items()}
     off_path = {name: fn.launches for name, fn in fused.items()}
     F, K, D = res.nmf_shape
     say(f"main path: F={F} K={K} D={D} n_iter={res.n_iter} nmf_error={res.nmf_error:.6g}")
-    say(f"main path: launches {launches}")
+    say(f"main path: launches {launches}; Griffin-Lim graphs captured {captures_cold}")
     say(f"main path: first run {cold_s:.4f} s, fenced stages (s) "
         f"{json.dumps({k: round(v, 6) for k, v in res.timings.items()})}")
     say(f"main path: stand-in held-out MCD {res.mcd_vs_reference:.4f} dB "
         f"(stand-in corpus; not comparable to the real corpus's figure)")
     if min(launches.values()) < 1:
         fail(f"a kernel of the main path never launched: {launches}")
+    if captures_cold < 1:
+        fail("the main path's Griffin-Lim captured no graph")
     if max(off_path.values()) > 0:
         fail(f"the default path launched an opt-in fused kernel: {off_path}")
     if res.audio.shape != x_in.shape or not np.isfinite(res.audio).all():
@@ -482,6 +582,48 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
     med = statistics.median(warm)
     say(f"main path: warm runs {[round(w, 4) for w in warm]} s, audio {audio_s:.3f} s, "
         f"{audio_s / med:.3f} audio-s/s (median)")
+
+    if gl_mod.griffin_lim.captures != captures:
+        fail(f"a warm run captured graphs again: {gl_mod.griffin_lim.captures - captures}")
+
+    # the production Griffin-Lim on the main path's Y and seed phase: the
+    # graphs against the eager loop (bit-equal), and each block size's cold
+    # call (capture and replays) and warm wall, graphs of the shape captured
+    # anew; the pool memory is what the device holds after the cold call
+    Y = res.converted["stft"]
+    S = extract_stft_complex(x_in, cfg, dev)
+    n_fft, hop, iters = cfg.mcep.frame_length, cfg.mcep.hop_length, cfg.nmf.griffin_lim_iters
+
+    def gl(graph=True):
+        return gl_mod.griffin_lim(Y, n_fft=n_fft, hop_length=hop, n_iter=iters,
+                                  length=len(x_in), init_phase=S, _graph=graph)
+
+    y_eager = gl(graph=False)
+    default_block = gl_mod.GRAPH_BLOCK
+    for block in (default_block, 10, iters):
+        gl_mod.GRAPH_BLOCK = block
+        gl_mod._loops.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0, caps0 = torch.cuda.memory_allocated(dev), gl_mod.griffin_lim.captures
+        t0 = time.perf_counter()
+        y_graph = gl()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        mem = torch.cuda.memory_allocated(dev) - mem0
+        caps = gl_mod.griffin_lim.captures - caps0
+        warm_ms = wall_ms(gl)
+        if not torch.equal(y_graph, y_eager) or gl_mod.griffin_lim.captures - caps0 != caps:
+            fail(f"graphed griffin_lim (block {block}) is not bit-equal to the eager loop, or "
+                 f"a second call captured again")
+        say(f"main path GL ({iters} iterations, F={Y.shape[0]}), graphs of {block} iterations: "
+            f"bit-equal to the eager loop; first call {cold_ms:.4f} ms ({caps} captures), warm "
+            f"wall {warm_ms:.4f} ms, held after the first call {mem / 2**20:.3f} MiB")
+    gl_mod.GRAPH_BLOCK = default_block
+    gl_mod._loops.clear()
+    dev_g, dev_e = device_ms(gl), device_ms(lambda: gl(graph=False))
+    say(f"main path GL: warm wall graphed {wall_ms(gl):.4f} ms (device {fmt_ms(dev_g)}), eager "
+        f"{wall_ms(lambda: gl(graph=False)):.4f} ms (device {fmt_ms(dev_e)})")
 
     runs = [len(warm)]
 
@@ -562,6 +704,9 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
         "GL fused": wall_ms(lambda: gl_angles_fused(Y_f, ang0, n_fft, hop, iters, 0.9)),
         "GL production": wall_ms(lambda: griffin_lim(Y_f, n_fft=n_fft, hop_length=hop,
                                                      n_iter=iters, init_phase=S)),
+        "GL production eager": wall_ms(lambda: griffin_lim(Y_f, n_fft=n_fft, hop_length=hop,
+                                                           n_iter=iters, init_phase=S,
+                                                           _graph=False)),
     }
     dev_ms = {
         "solve fused": device_ms(lambda: nmf_activations(X, A, fused=True, **kw)),
@@ -569,6 +714,9 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
         "GL fused": device_ms(lambda: gl_angles_fused(Y_f, ang0, n_fft, hop, iters, 0.9)),
         "GL production": device_ms(lambda: griffin_lim(Y_f, n_fft=n_fft, hop_length=hop,
                                                        n_iter=iters, init_phase=S)),
+        "GL production eager": device_ms(lambda: griffin_lim(Y_f, n_fft=n_fft, hop_length=hop,
+                                                             n_iter=iters, init_phase=S,
+                                                             _graph=False)),
     }
     say("fused path: wall (median of 3) / device time: " + ", ".join(
         f"{k} {ms[k]:.4f} ms / {fmt_ms(dev_ms[k])}" for k in ms))

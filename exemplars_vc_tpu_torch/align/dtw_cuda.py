@@ -23,13 +23,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from exemplars_vc_tpu_torch.kernels.build import SMEM_LIMIT_BYTES, check, load_library
+from exemplars_vc_tpu_torch.kernels.build import check, load_library
 
 BIG = 1e30
-# the longest source the wrappers take: three float32 wavefronts of Ta in one
-# block's shared memory, the range of the first design, which every later
-# plan keeps (19,370 frames)
-MAX_TA = SMEM_LIMIT_BYTES // 12
 DTW_MAX_CLUSTER = 8          # CTAs a pair (the portable cluster size)
 DTW_MAX_WARPS = 16           # warps a CTA
 # rows a lane and steps a chunk of the two compiled variants: one row a lane
@@ -37,9 +33,13 @@ DTW_MAX_WARPS = 16           # warps a CTA
 # eight rows a lane (4-step chunks, for their registers) the rest
 DTW_ONE_ROW_MAX_TA = DTW_MAX_CLUSTER * DTW_MAX_WARPS * 32
 DTW_CHUNK = {1: 16, 8: 4}
+# the longest source the wrappers take: the reach of the widest plan, 8 CTAs
+# x 16 warps x 32 lanes x 8 rows = 32,768 frames (the kernel keeps no
+# Ta-sized buffer); longer sources wait for the long DTW
+MAX_TA = DTW_ONE_ROW_MAX_TA * 8
 
 
-def fits_smem(ta: int) -> bool:
+def fits_plan(ta: int) -> bool:
     """Whether the wavefront kernel takes a source length of ``ta`` frames
     (the counterpart of ``dtw_pallas.fits_vmem``)."""
     return 1 <= ta <= MAX_TA
@@ -56,7 +56,7 @@ def dtw_wavefront_plan(n: int, ta: int, n_sms: int) -> dict:
     cluster aims at ``n_sms // n`` CTAs a pair, at most 8, so that few rows
     share an SM, and widens up to 8 where a CTA would need more than 16
     warps. Raises ValueError outside ``1 <= ta <= MAX_TA``."""
-    if not fits_smem(ta):
+    if not fits_plan(ta):
         raise ValueError(f"dtw_wavefront: Ta={ta} is outside 1..{MAX_TA}")
     r = 1 if ta <= DTW_ONE_ROW_MAX_TA else 8
     warps = -(-ta // (32 * r))
@@ -136,9 +136,10 @@ def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor):
         raise ValueError(f"C must be contiguous float32 (N, Ta, Tb), got "
                          f"{C.dtype} {tuple(C.shape)}")
     n, ta, tb = C.shape
-    if not fits_smem(ta):
-        raise ValueError(f"dtw_wavefront: Ta={ta} is more than {MAX_TA} frames, the range "
-                         f"of three float32 wavefronts in {SMEM_LIMIT_BYTES} B of shared memory")
+    if not fits_plan(ta):
+        raise ValueError(f"dtw_wavefront: Ta={ta} is more than {MAX_TA} frames, the reach of "
+                         f"the widest plan (8 CTAs x 16 warps x 32 lanes x 8 rows); longer "
+                         f"sources wait for the long DTW (ROADMAP queue 1 item 12)")
     _check_lens(lens, n, ta, tb, C.device)
     plan = dtw_wavefront_plan(n, ta, torch.cuda.get_device_properties(C.device)
                               .multi_processor_count)

@@ -3,51 +3,69 @@
 // Replaces: exemplars_vc_tpu/dsp/griffin_lim_pallas.py:gl_pallas_angles
 // (entered through gl_angles_fused). Per iteration, for every frame t:
 //
-//   s        = mag * angles                              (re, im planes)
-//   frame_t  = s_re . Bsyn_re + s_im . Bsyn_im            windowed irDFT
-//   y        = overlap-add of the frames * 1/window-sum   center=False, NOLA
-//   rebuilt  = y[t*hop : t*hop + n_fft] . (Bana_re, Bana_im)   windowed rDFT
+//   s        = mag * angles
+//   frame_t  = window * irfft(s)                         (n_fft real)
+//   y        = overlap-add of the frames * 1/window-sum  center=False, NOLA
+//   rebuilt  = rfft(window * y[t*hop : t*hop + n_fft])
 //   t        = rebuilt - mom * prev;  prev = rebuilt;  mom = mu / (1 + mu)
 //   angles   = t / max(|t|, 1e-16)
 //
-// Bsyn (bins x n_fft) and Bana (n_fft x bins) are the matmul-DFT bases of
-// exemplars_vc_tpu/dsp/fft.py with the window folded in, built in
-// dsp/griffin_lim_cuda.py. The state stays at F rows: the TPU kernel's
-// F + r - 1 rows and circular rolls are a layout device, and its output
-// rows [:F] are this acyclic projection.
+// The plain twin (dsp/griffin_lim_cuda.py) computes the transforms as the
+// reference's DFT table products; this kernel computes them as FFTs.
 //
-// Design: a persistent cooperative launch (cudaLaunchCooperativeKernel).
-// Each block owns tiles of EVC_GL_TF = 6 frames (115 tiles at F = 688, so
-// one tile per SM on 132 SMs); the grid is min(tiles, co-resident blocks)
-// and a block walks its tiles grid-stride. Phase A writes the block's
-// windowed irDFT frames to a global frames buffer; one grid sync; phase B
-// assembles each tile's signal segment y[t0*hop, (t0+TF-1)*hop + n_fft)
-// from the <= r overlapping frames into shared memory, scales it by the
-// NOLA normaliser, applies the windowed rDFT and the momentum and
-// normalisation to the block's own rows of the phase state. The next phase
-// A reads only those rows, so it needs no grid sync: the frames buffer is
-// double-buffered by iteration parity, and the one grid sync per iteration
-// (after phase A) also orders phase B of iteration i before phase A of
-// iteration i + 2 rewrites its buffer. The DFTs are explicit fp32 FMA dot
-// products: one thread per output column (n in phase A, bin in phase B)
-// for the tile's 6 frames, the basis value read once from L2 and used 6 (x2)
-// times, the tile's spectra and signal broadcast from shared memory. No
-// cuFFT and no library call. The frames buffer is read with __ldcg (L2,
-// never a stale L1 line) because other blocks write it.
+// Design. One CTA owns a tile of `tile` consecutive frames (the plan,
+// gl_fused_plan, takes the smallest tile that leaves one CTA an SM: 6 at
+// F = 688 on 132 SMs) and keeps, for all iterations, in shared memory: the
+// tile's magnitudes and momentum state, the twiddle tables and windows, and
+// two ping-pong buffers of its transforms. A frame's real n_fft-point
+// transform is one complex M-point FFT, M = n_fft / 2 (n_fft even: samples
+// 2j and 2j + 1 are the real and imaginary parts, split after the forward
+// transform and joined before the inverse with the twiddles e^{-2 pi i k /
+// n_fft}), or M = n_fft with a zero imaginary part (n_fft odd). The FFT is a
+// mixed-radix Stockham autosort pass per radix of fft_radices(M) (200 = 5 *
+// 5 * 8 at n_fft 400), each butterfly in registers between two shared
+// buffers; a prime factor above 5 is a direct DFT pass. The inverse is the
+// forward FFT of the conjugate, conjugated: 1/n_fft is folded into the
+// synthesis window, irfft's bin weights come from the Hermitian extension,
+// and the imaginary parts of DC and Nyquist are dropped, as irfft drops
+// them. Each frame is transformed alone, so a silent frame stays exactly
+// zero (two frames packed into one transform leak ~1e-7 of the louder into
+// it, which the 1/window-sum amplifies at the signal's ends).
 //
-// What bounds it on this card: the DFTs are 2 x 2 x F x bins x n_fft FMAs
-// per iteration (0.44 GFLOP at F = 688, n_fft = 400), spread over ~115 SMs
-// at one tile each; every block re-reads all four bases (1.3 MB, L2
-// resident) per iteration; and one grid-wide barrier per iteration (300 at
-// n_iter = 300) sets a latency floor. Everything fits in the 50 MB L2
-// (bases 1.3 MB, state 4 x 0.55 MB, frames 2 x 1.1 MB). Measured by
-// chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W: 300 iterations at
-// 688 x 201 take 20.0 ms (~67 us each), of which 300 bare grid syncs take
-// 0.35 ms; the bound is the L2 latency of the basis loads with only 8 warps
-// per SM (unrolling them 4 -> 8 deep took 26.4 -> 20.5 ms). Later Hopper
-// options: a CUDA graph of per-iteration kernels measured against this
-// design; tensor cores only once a bf16 or TF32 opt-in exists (fp32 parity
-// rules them out here).
+// Precision: the twiddles and windows are built in float64 on the host and
+// rounded once to float32, as the twin's bases are; the arithmetic inside
+// the kernel (transforms, overlap-add, momentum, the frames it exchanges) is
+// float64, and the angles leave as float32. The kernel is bound by latency,
+// not by its operations, and float32 arithmetic along the FFT's passes
+// failed the twin's accuracy gate (mean phase error against the float64
+// twin at most twice the float32 twin's) at small shapes in a numpy model of
+// this kernel (tests/test_torch_gl_plan.py), where a bin that nearly cancels
+// carries a different rounding.
+//
+// Only the overlap-add crosses CTAs: each CTA writes its windowed frames to
+// a global buffer (double-buffered by iteration parity) and reads, with
+// __ldcg (L2, never a stale L1 line), the frames that overlap its signal
+// segment: its own and r - 1 = n_fft/hop - 1 on each side. The iteration
+// barrier is either one grid sync (barrier 0) or a neighbour hand-off
+// (barrier 1): the CTA publishes its step with st.release.gpu after a
+// __threadfence, and waits with ld.acquire.gpu polls only for the tiles
+// whose frames overlap its segment. A CTA then runs at most one iteration
+// ahead of a neighbour; a neighbour's step tag of i + 2 also says that it
+// has read this CTA's frames of iteration i, so rewriting that parity is
+// safe. Both variants launch cooperatively, which guarantees that every CTA
+// is resident (the polls and the grid sync deadlock otherwise); a grid
+// larger than the co-resident CTAs is refused before launch.
+//
+// Determinism: a frame's arithmetic does not depend on the tile or the
+// barrier (the overlap-add sums frames in ascending order from the one
+// global buffer), so two plans give equal bits.
+//
+// What bounds it on this card (NVIDIA H100 80GB HBM3, 700 W): not bytes and
+// not operations (an inverse and a forward real FFT a frame and iteration,
+// ~0.066 ms for 300 iterations at 688 x 201, n_fft 400, at the fp32 rate)
+// but the latency of one iteration's dependent steps: 2 x 3 butterfly
+// passes, each a shared-memory round trip and a __syncthreads, the frame
+// exchange through L2 and the barrier. PERF.md has the measured times.
 //
 // Build: plain nvcc, no -rdc. Since CUDA 11 the grid barrier of
 // cooperative_groups::this_grid().sync() is implemented in the header and
@@ -58,154 +76,450 @@
 
 namespace cg = cooperative_groups;
 
-#define EVC_GL_THREADS 256
-#define EVC_GL_TF 6   // frames per tile
+#define EVC_GL_MAX_THREADS 512
+#define EVC_GL_MAX_STAGES 24
+#define EVC_GL_SMEM_LIMIT 232448
+#define EVC_GL_OLA_LOADS 8     // overlapping frames whose samples are loaded at once
+#define EVC_GL_MAX_INDEX (1 << 22)   // gl_div is exact below this
 
-static size_t gl_smem_bytes(int bins, int n_fft, int hop) {
-  const size_t spec = sizeof(float2) * (size_t)bins * EVC_GL_TF;          // phase A
-  const size_t seg = sizeof(float) * ((size_t)(EVC_GL_TF - 1) * hop + n_fft);  // phase B
-  return spec > seg ? spec : seg;
+struct GlSched {
+  int n;                            // passes
+  int radix[EVC_GL_MAX_STAGES];
+};
+
+// One CTA's shared memory (griffin_lim_cuda._smem_bytes mirrors it).
+struct GlSmem {
+  double2 *buf0, *buf1;  // [tile][M]: the frames' transforms, ping-pong
+  double2 *tw, *rtw;     // [n_tw]: M-point twiddles, then each pass's roots;
+                         // [n_rtw]: e^{-2 pi i k / n_fft}, k <= M (n_fft even)
+  double2* prev;         // [tile][bins]: momentum state
+  double* seg;           // [(tile-1)*hop + n]: the tile's signal
+  float *mag, *ws, *wa;  // [tile][bins]; [n] window / n_fft; [n] window
+  float* iw;             // [(tile-1)*hop + n]: 1/window-sum of the segment
+};
+
+static size_t gl_smem_bytes(int tile, int n, int hop, int n_tw) {
+  const size_t bins = (size_t)n / 2 + 1, seg = (size_t)(tile - 1) * hop + n;
+  const size_t m = n % 2 ? n : n / 2, n_rtw = n % 2 ? 0 : m + 1;
+  return 16 * (2 * (size_t)tile * m + n_tw + n_rtw + tile * bins) + 8 * seg +
+         4 * (tile * bins + 2 * (size_t)n + seg);
 }
 
-__global__ void __launch_bounds__(EVC_GL_THREADS)
-gl_fused_kernel(const float* __restrict__ mag, float* ang_re, float* ang_im, float* prev_re,
-                float* prev_im, float* frames, const float* __restrict__ bsyn_re,
-                const float* __restrict__ bsyn_im, const float* __restrict__ bana_re,
-                const float* __restrict__ bana_im, const float* __restrict__ inv_w, int F,
-                int bins, int n_fft, int hop, int n_iter, float mom) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 evc_smem4[];
-  float2* spec = reinterpret_cast<float2*>(evc_smem4);   // [bins][TF] (re, im)
-  float* seg = reinterpret_cast<float*>(evc_smem4);      // the tile's y segment
-  const int tid = threadIdx.x;
-  const int n_tiles = (F + EVC_GL_TF - 1) / EVC_GL_TF;
+__device__ __forceinline__ GlSmem gl_carve(float4* base, int tile, int n, int hop, int n_tw) {
+  GlSmem s;
+  const int bins = n / 2 + 1, m = n % 2 ? n : n / 2, n_rtw = n % 2 ? 0 : m + 1;
+  const int seg = (tile - 1) * hop + n;
+  s.buf0 = reinterpret_cast<double2*>(base);
+  s.buf1 = s.buf0 + tile * m;
+  s.tw = s.buf1 + tile * m;
+  s.rtw = s.tw + n_tw;
+  s.prev = s.rtw + n_rtw;
+  s.seg = reinterpret_cast<double*>(s.prev + tile * bins);
+  s.mag = reinterpret_cast<float*>(s.seg + seg);
+  s.ws = s.mag + tile * bins;
+  s.wa = s.ws + n;
+  s.iw = s.wa + n;
+  return s;
+}
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int t0 = tile * EVC_GL_TF;
-    const int nt = min(EVC_GL_TF, F - t0);
-    for (int e = tid; e < nt * bins; e += EVC_GL_THREADS) {
-      prev_re[(size_t)t0 * bins + e] = 0.f;
-      prev_im[(size_t)t0 * bins + e] = 0.f;
+// floor(a / d) for 0 <= a < EVC_GL_MAX_INDEX, given rcp = 1.0f / d: (a + 0.5)
+// rcp is within (a + 0.5) / d * 2^-23 < 0.5 / d of (a + 0.5) / d, which is
+// 0.5 / d from the nearest integer. A runtime integer division costs ~20
+// dependent instructions, and every element loop and butterfly needs one.
+__device__ __forceinline__ int gl_div(int a, float rcp) {
+  return __float2int_rz(__fmaf_rn((float)a, rcp, 0.5f * rcp));
+}
+
+__device__ __forceinline__ double2 gl_cmul(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
+}
+
+__device__ __forceinline__ double2 gl_cmad(double2 a, double2 b, double2 c) {   // c + a * b
+  return make_double2(fma(a.x, b.x, fma(-a.y, b.y, c.x)), fma(a.x, b.y, fma(a.y, b.x, c.y)));
+}
+
+__device__ __forceinline__ double2 gl_add(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ double2 gl_sub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+
+// 4-point forward DFT of (a, b, c, d) in place.
+__device__ __forceinline__ void gl_dft4(double2& a, double2& b, double2& c, double2& d) {
+  const double2 t0 = gl_add(a, c), t1 = gl_sub(a, c), t2 = gl_add(b, d), t3 = gl_sub(b, d);
+  a = gl_add(t0, t2);
+  c = gl_sub(t0, t2);
+  b = make_double2(t1.x + t3.y, t1.y - t3.x);   // t1 - i t3
+  d = make_double2(t1.x - t3.y, t1.y + t3.x);   // t1 + i t3
+}
+
+// In-place R-point forward DFT of v; w holds the roots exp(-2 pi i q / R)
+// (read only for R = 3 and 5).
+template <int R>
+__device__ __forceinline__ void gl_dft(double2 (&v)[R], const double2 (&w)[R]) {
+  if constexpr (R == 2) {
+    const double2 a = v[0], b = v[1];
+    v[0] = gl_add(a, b);
+    v[1] = gl_sub(a, b);
+  } else if constexpr (R == 4) {
+    gl_dft4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (R == 8) {
+    // two 4-point DFTs of the even and odd inputs, joined by W8^q
+    constexpr double h = 0.70710678118654752440;   // 1/sqrt(2)
+    double2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+    double2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+    gl_dft4(e0, e1, e2, e3);
+    gl_dft4(o0, o1, o2, o3);
+    o1 = make_double2(h * (o1.x + o1.y), h * (o1.y - o1.x));      // * (1 - i)/sqrt 2
+    o2 = make_double2(o2.y, -o2.x);                                // * -i
+    o3 = make_double2(h * (o3.y - o3.x), -h * (o3.x + o3.y));     // * (-1 - i)/sqrt 2
+    v[0] = gl_add(e0, o0);
+    v[4] = gl_sub(e0, o0);
+    v[1] = gl_add(e1, o1);
+    v[5] = gl_sub(e1, o1);
+    v[2] = gl_add(e2, o2);
+    v[6] = gl_sub(e2, o2);
+    v[3] = gl_add(e3, o3);
+    v[7] = gl_sub(e3, o3);
+  } else {
+    double2 out[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      double2 acc = v[0];
+#pragma unroll
+      for (int p = 1; p < R; ++p) {
+        const int e = (p * q) % R;
+        acc = e == 0 ? gl_add(acc, v[p]) : gl_cmad(v[p], w[e], acc);
+      }
+      out[q] = acc;
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = out[q];
+  }
+}
+
+// One Stockham pass of radix R over `count` m-point transforms, x -> y: the
+// earlier passes span ns points; butterfly j reads x[j + r m/R], scales by
+// the twiddle of (k = j mod ns, r) at tw[(r - 1) ns + k], and writes
+// y[(j - k) R + k + q ns].
+template <int R>
+__device__ __forceinline__ void gl_stage(const double2* __restrict__ x, double2* __restrict__ y,
+                                         const double2* tw, const double2* roots, int ns,
+                                         int count, int m) {
+  double2 w[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) w[q] = (R == 3 || R == 5) ? roots[q] : make_double2(1.0, 0.0);
+  const int mr = m / R;
+  const float rcp_mr = 1.0f / mr, rcp_ns = 1.0f / ns;
+  for (int b = threadIdx.x; b < count * mr; b += blockDim.x) {
+    const int f = gl_div(b, rcp_mr), j = b - f * mr, k = j - gl_div(j, rcp_ns) * ns;
+    const double2* xf = x + f * m;
+    double2 v[R];
+    v[0] = xf[j];
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = gl_cmul(xf[j + r * mr], tw[(r - 1) * ns + k]);
+    gl_dft<R>(v, w);
+    double2* yf = y + f * m + (j - k) * R + k;
+#pragma unroll
+    for (int q = 0; q < R; ++q) yf[q * ns] = v[q];
+  }
+}
+
+// The same pass for any other radix: one thread an output, a direct DFT.
+__device__ __noinline__ void gl_stage_dft(const double2* __restrict__ x, double2* __restrict__ y,
+                                          const double2* tw, const double2* roots, int R, int ns,
+                                          int count, int m) {
+  const int mr = m / R;
+  for (int o = threadIdx.x; o < count * m; o += blockDim.x) {
+    const int f = o / m, u = o - f * m;
+    const int k = u % ns, q = (u / ns) % R, j = (u / (ns * R)) * ns + k;
+    const double2* xf = x + f * m;
+    double2 acc = xf[j];
+    for (int r = 1; r < R; ++r)
+      acc = gl_cmad(gl_cmul(xf[j + r * mr], tw[(r - 1) * ns + k]), roots[(r * q) % R], acc);
+    y[o] = acc;
+  }
+}
+
+// Forward FFT of `count` m-point transforms starting in x (y is scratch);
+// returns the buffer that holds the result. Every pass ends in a
+// __syncthreads.
+__device__ double2* gl_fft(double2* x, double2* y, const GlSched& sc, const double2* tw,
+                           int count, int m) {
+  int ns = 1, off = 0, roff = m - 1;
+  for (int s = 0; s < sc.n; ++s) {
+    const int R = sc.radix[s];
+    switch (R) {
+      case 2: gl_stage<2>(x, y, tw + off, tw + roff, ns, count, m); break;
+      case 3: gl_stage<3>(x, y, tw + off, tw + roff, ns, count, m); break;
+      case 4: gl_stage<4>(x, y, tw + off, tw + roff, ns, count, m); break;
+      case 5: gl_stage<5>(x, y, tw + off, tw + roff, ns, count, m); break;
+      case 8: gl_stage<8>(x, y, tw + off, tw + roff, ns, count, m); break;
+      default: gl_stage_dft(x, y, tw + off, tw + roff, R, ns, count, m);
+    }
+    __syncthreads();
+    off += ns * (R - 1);
+    roff += R;
+    ns *= R;
+    double2* t = x;
+    x = y;
+    y = t;
+  }
+  return x;
+}
+
+// n_fft even. Bin k of a real frame's spectrum from the M-point transform Z
+// of its samples packed (2j, 2j + 1): with u = Z[k], v = Z[M - k],
+// X[k] = E + W^k O, E = (u + conj v) / 2, O = (u - conj v) / 2i.
+__device__ __forceinline__ double2 gl_unpack(double2 u, double2 v, double2 wk) {
+  const double2 e = make_double2(0.5 * (u.x + v.x), 0.5 * (u.y - v.y));
+  const double2 o = make_double2(0.5 * (u.y + v.y), 0.5 * (v.x - u.x));
+  return gl_cmad(wk, o, e);
+}
+
+// n_fft even. The conjugate of the inverse transform's input at index k,
+// from the spectrum's bins a = S[k], b = S[M - k]: E + i O with E = a +
+// conj b, O = conj(W^k) (a - conj b); the 1/2 of both is in window / n_fft.
+__device__ __forceinline__ double2 gl_pack(double2 a, double2 b, double2 wk) {
+  const double2 e = make_double2(a.x + b.x, a.y - b.y);
+  const double2 d = make_double2(a.x - b.x, a.y + b.y);
+  const double2 o = make_double2(fma(wk.x, d.x, wk.y * d.y), fma(wk.x, d.y, -wk.y * d.x));
+  return make_double2(e.x - o.y, -(e.y + o.x));
+}
+
+// Momentum and unit-phase normalisation of one bin; returns mag * angle, the
+// next iteration's spectrum, and writes the angle on the last iteration.
+__device__ __forceinline__ double2 gl_update(double2 x, double2* prev, const float* mag, int idx,
+                                             double mom, float2* out) {
+  const double2 pv = prev[idx];
+  const double tx = x.x - mom * pv.x, ty = x.y - mom * pv.y;
+  prev[idx] = x;
+  // 1 / max(|t|, 1e-16), one rsqrt in place of a sqrt and two divisions
+  const double r = rsqrt(fmax(tx * tx + ty * ty, 1e-32));
+  const double2 a = make_double2(tx * r, ty * r);
+  if (out) *out = make_float2((float)a.x, (float)a.y);
+  const double mg = mag[idx];
+  return make_double2(mg * a.x, mg * a.y);
+}
+
+__device__ __forceinline__ void gl_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int gl_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// One work item of the spectrum pass, for frame f of the tile: bins k and
+// M - k (n_fft even, k <= M/2; k = 0 also takes Nyquist, M), or bin k
+// (n_fft odd, k < bins). `z` is the frame's forward transform (null on the
+// first pass, which reads angles0); the pass updates the state, writes the
+// angles on the last iteration (`out` not null) and otherwise puts the
+// inverse transform's input (the conjugate) into `nz`.
+template <bool EVEN>
+__device__ __forceinline__ void gl_spectrum(const double2* z, double2* nz, const GlSmem& s,
+                                            const float2* ang0, float2* out, int f, int k,
+                                            int n, int m, double mom) {
+  const int row = f * (n / 2 + 1);
+  if (EVEN) {
+    const int k2 = k == 0 ? m : m - k;   // the partner bin
+    const bool two = k2 != k;
+    double2 a, b;
+    if (z) {
+      const double2 u = z[k], v = z[k == 0 ? 0 : m - k];
+      a = gl_update(gl_unpack(u, v, s.rtw[k]), s.prev, s.mag, row + k, mom,
+                    out ? out + row + k : nullptr);
+      b = a;
+      if (two)
+        b = gl_update(gl_unpack(v, u, s.rtw[k2]), s.prev, s.mag, row + k2, mom,
+                      out ? out + row + k2 : nullptr);
+    } else {
+      const float2 ga = ang0[row + k], gb = ang0[row + k2];
+      const double ma = s.mag[row + k], mb = s.mag[row + k2];
+      a = make_double2(ma * ga.x, ma * ga.y);
+      b = make_double2(mb * gb.x, mb * gb.y);
+    }
+    if (out) return;
+    if (k == 0) {   // DC and Nyquist are real
+      a.y = 0.0;
+      b.y = 0.0;
+    }
+    nz[k] = gl_pack(a, b, s.rtw[k]);
+    if (k != 0 && two) nz[k2] = gl_pack(b, a, s.rtw[k2]);
+  } else {
+    double2 a;
+    if (z) {
+      a = gl_update(z[k], s.prev, s.mag, row + k, mom, out ? out + row + k : nullptr);
+    } else {
+      const float2 g = ang0[row + k];
+      const double mg = s.mag[row + k];
+      a = make_double2(mg * g.x, mg * g.y);
+    }
+    if (out) return;
+    if (k == 0) {
+      nz[0] = make_double2(a.x, 0.0);
+    } else {
+      nz[k] = make_double2(a.x, -a.y);
+      nz[n - k] = a;
     }
   }
+}
 
+template <bool NEIGHBOUR>
+__global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
+    gl_fused_kernel(const float* __restrict__ mag_g, const float2* __restrict__ ang0,
+                    float2* __restrict__ ang_out, double* frames, int* flags,
+                    const float* __restrict__ consts, const float* __restrict__ inv_w, int F,
+                    int n, int hop, int tile, int n_tw, int n_iter, double mom,
+                    const GlSched sc) {
+  extern __shared__ float4 evc_gl_smem[];
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int bins = n / 2 + 1;
+  const bool even = n % 2 == 0;
+  const int m = even ? n / 2 : n, n_rtw = even ? m + 1 : 0;
+  const int items = even ? m / 2 + 1 : bins;    // spectrum work items a frame
+  const int t0 = blockIdx.x * tile, nt = min(tile, F - t0);
+  const int r1 = n / hop - 1;                   // frames overlapping on each side
+  const int seg_len = (nt - 1) * hop + n;
+  const float rcp_m = 1.0f / m, rcp_items = 1.0f / items, rcp_hop = 1.0f / hop;
+  const GlSmem s = gl_carve(evc_gl_smem, tile, n, hop, n_tw);
+  const size_t base = (size_t)t0 * bins;
+  const float2* ang0_t = ang0 + base;
+  float2* out_t = ang_out + base;
+
+  if (n_iter == 0) {
+    for (int e = tid; e < nt * bins; e += nth) out_t[e] = ang0_t[e];
+    return;
+  }
+  const float2* tw_g = reinterpret_cast<const float2*>(consts);
+  for (int i = tid; i < n_tw + n_rtw; i += nth)   // tw and rtw are adjacent
+    s.tw[i] = make_double2(tw_g[i].x, tw_g[i].y);
+  const float* win_g = consts + 2 * (n_tw + n_rtw);
+  for (int i = tid; i < n; i += nth) {
+    s.ws[i] = win_g[i];
+    s.wa[i] = win_g[n + i];
+  }
+  for (int i = tid; i < seg_len; i += nth) s.iw[i] = inv_w[(size_t)t0 * hop + i];
+  for (int e = tid; e < nt * bins; e += nth) {
+    s.mag[e] = mag_g[base + e];
+    s.prev[e] = make_double2(0.0, 0.0);
+  }
+  __syncthreads();
+  for (int e = tid; e < nt * items; e += nth) {   // the first spectra, mag * angles0
+    const int f = gl_div(e, rcp_items);
+    if (even)
+      gl_spectrum<true>(nullptr, s.buf0 + f * m, s, ang0_t, nullptr, f, e - f * items, n, m, mom);
+    else
+      gl_spectrum<false>(nullptr, s.buf0 + f * m, s, ang0_t, nullptr, f, e - f * items, n, m,
+                         mom);
+  }
+  __syncthreads();
+
+  double2 *in = s.buf0, *other = s.buf1;
   for (int it = 0; it < n_iter; ++it) {
-    float* fr = frames + (size_t)(it & 1) * F * n_fft;
-
-    // ---- phase A: windowed irDFT of mag * angles, the block's frames ------
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int t0 = tile * EVC_GL_TF;
-      const int nt = min(EVC_GL_TF, F - t0);
-      __syncthreads();   // spec/seg of the previous tile or phase consumed
-      for (int e = tid; e < EVC_GL_TF * bins; e += EVC_GL_THREADS) {
-        const int f = e / bins, b = e % bins;
-        float2 s = make_float2(0.f, 0.f);
-        if (f < nt) {
-          const size_t idx = (size_t)(t0 + f) * bins + b;
-          const float m = __ldg(mag + idx);
-          s = make_float2(m * ang_re[idx], m * ang_im[idx]);
-        }
-        spec[b * EVC_GL_TF + f] = s;
-      }
-      __syncthreads();
-      for (int n = tid; n < n_fft; n += EVC_GL_THREADS) {
-        // re and im products in separate chains, as the twin's two matmuls
-        float acc_re[EVC_GL_TF], acc_im[EVC_GL_TF];
-#pragma unroll
-        for (int f = 0; f < EVC_GL_TF; ++f) acc_re[f] = acc_im[f] = 0.f;
-#pragma unroll 8
-        for (int b = 0; b < bins; ++b) {
-          const float cr = __ldg(bsyn_re + (size_t)b * n_fft + n);
-          const float ci = __ldg(bsyn_im + (size_t)b * n_fft + n);
-          const float4* s4 = reinterpret_cast<const float4*>(spec + b * EVC_GL_TF);
-#pragma unroll
-          for (int q = 0; q < EVC_GL_TF / 2; ++q) {
-            const float4 s = s4[q];   // frames 2q and 2q + 1
-            acc_re[2 * q] = fmaf(s.x, cr, acc_re[2 * q]);
-            acc_im[2 * q] = fmaf(s.y, ci, acc_im[2 * q]);
-            acc_re[2 * q + 1] = fmaf(s.z, cr, acc_re[2 * q + 1]);
-            acc_im[2 * q + 1] = fmaf(s.w, ci, acc_im[2 * q + 1]);
-          }
-        }
-#pragma unroll
-        for (int f = 0; f < EVC_GL_TF; ++f)
-          if (f < nt) fr[(size_t)(t0 + f) * n_fft + n] = acc_re[f] + acc_im[f];
+    // inverse transforms, times window / n_fft: sample 2j in the real part,
+    // 2j + 1 in minus the imaginary part (n_fft odd: sample j, real part)
+    const double2* z = gl_fft(in, other, sc, s.tw, nt, m);
+    double* fr = frames + (size_t)(it & 1) * F * n;
+    double* fr_t = fr + (size_t)t0 * n;
+    for (int e = tid; e < nt * m; e += nth) {
+      const int f = gl_div(e, rcp_m), j = e - f * m;
+      const double2 w = z[e];
+      if (even) {
+        double* o = fr_t + (size_t)f * n + 2 * j;
+        o[0] = s.ws[2 * j] * w.x;
+        o[1] = s.ws[2 * j + 1] * -w.y;
+      } else {
+        fr_t[(size_t)f * n + j] = s.ws[j] * w.x;
       }
     }
-
-    grid.sync();   // every frame of this iteration is written
-
-    // ---- phase B: OLA + NOLA, windowed rDFT, momentum, normalisation -------
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int t0 = tile * EVC_GL_TF;
-      const int nt = min(EVC_GL_TF, F - t0);
-      const int s0 = t0 * hop;
-      const int len = (nt - 1) * hop + n_fft;
-      __syncthreads();
-      for (int i = tid; i < len; i += EVC_GL_THREADS) {
-        const int g = s0 + i;   // sample of the un-cropped OLA signal
-        const int lo = g >= n_fft ? (g - n_fft) / hop + 1 : 0;
-        const int hi = min(F - 1, g / hop);
-        float y = 0.f;
-        for (int t = lo; t <= hi; ++t) y += __ldcg(fr + (size_t)t * n_fft + (g - t * hop));
-        seg[i] = y * __ldg(inv_w + g);
+    if (NEIGHBOUR) {
+      __syncthreads();   // every frame of the tile is stored
+      if (tid == 0) {
+        __threadfence();
+        gl_release(flags + blockIdx.x, it + 1);
       }
+      const int lo = max(0, t0 - r1) / tile, hi = min(F - 1, t0 + nt - 1 + r1) / tile;
+      for (int c = lo + tid; c <= hi; c += nth)
+        if (c != (int)blockIdx.x)
+          while (gl_acquire(flags + c) < it + 1) {
+          }
       __syncthreads();
-      for (int b = tid; b < bins; b += EVC_GL_THREADS) {
-        float are[EVC_GL_TF], aim[EVC_GL_TF];
-#pragma unroll
-        for (int f = 0; f < EVC_GL_TF; ++f) are[f] = aim[f] = 0.f;
-#pragma unroll 8
-        for (int n = 0; n < n_fft; ++n) {
-          const float cr = __ldg(bana_re + (size_t)n * bins + b);
-          const float ci = __ldg(bana_im + (size_t)n * bins + b);
-#pragma unroll
-          for (int f = 0; f < EVC_GL_TF; ++f) {
-            if (f < nt) {
-              const float y = seg[f * hop + n];
-              are[f] = fmaf(y, cr, are[f]);
-              aim[f] = fmaf(y, ci, aim[f]);
-            }
-          }
-        }
-#pragma unroll
-        for (int f = 0; f < EVC_GL_TF; ++f) {
-          if (f < nt) {
-            const size_t idx = (size_t)(t0 + f) * bins + b;
-            const float tre = are[f] - mom * prev_re[idx];
-            const float tim = aim[f] - mom * prev_im[idx];
-            prev_re[idx] = are[f];
-            prev_im[idx] = aim[f];
-            const float norm = fmaxf(sqrtf(tre * tre + tim * tim), 1e-16f);
-            ang_re[idx] = tre / norm;
-            ang_im[idx] = tim / norm;
-          }
-        }
-      }
+    } else {
+      cg::this_grid().sync();
     }
-    // no grid sync here: the next phase A reads only this block's rows and
-    // writes the other frames buffer
+    // overlap-add of the tile's segment, frames in ascending order; the
+    // samples of up to EVC_GL_OLA_LOADS frames are loaded before the first
+    // add, so a sample waits for one L2 round trip, not one a frame
+    for (int i = tid; i < seg_len; i += nth) {
+      const int g = t0 * hop + i;
+      const int lo = g >= n ? gl_div(g - n, rcp_hop) + 1 : 0;
+      const int hi = min(F - 1, gl_div(g, rcp_hop));
+      const double* src = fr + (size_t)lo * n + (g - lo * hop);   // next frame: + n - hop
+      double v[EVC_GL_OLA_LOADS];
+#pragma unroll
+      for (int q = 0; q < EVC_GL_OLA_LOADS; ++q)
+        v[q] = lo + q <= hi ? __ldcg(src + (size_t)q * (n - hop)) : 0.0;
+      double y = v[0];
+#pragma unroll
+      for (int q = 1; q < EVC_GL_OLA_LOADS; ++q)
+        if (lo + q <= hi) y += v[q];
+      for (int t = lo + EVC_GL_OLA_LOADS; t <= hi; ++t)
+        y += __ldcg(fr + (size_t)t * n + (g - t * hop));
+      s.seg[i] = y * s.iw[i];
+    }
+    __syncthreads();
+    // forward transforms of window * y, packed as the inverse unpacked
+    for (int e = tid; e < nt * m; e += nth) {
+      const int f = gl_div(e, rcp_m), j = e - f * m;
+      const double* y = s.seg + f * hop;
+      in[e] = even ? make_double2(s.wa[2 * j] * y[2 * j], s.wa[2 * j + 1] * y[2 * j + 1])
+                   : make_double2(s.wa[j] * y[j], 0.0);
+    }
+    __syncthreads();
+    const double2* U = gl_fft(in, other, sc, s.tw, nt, m);
+    double2* nxt = U == in ? other : in;
+    float2* out = it + 1 == n_iter ? out_t : nullptr;
+    // spectra, momentum, normalisation, the next inverse transforms' input
+    for (int e = tid; e < nt * items; e += nth) {
+      const int f = gl_div(e, rcp_items), k = e - f * items;
+      if (even)
+        gl_spectrum<true>(U + f * m, nxt + f * m, s, nullptr, out, f, k, n, m, mom);
+      else
+        gl_spectrum<false>(U + f * m, nxt + f * m, s, nullptr, out, f, k, n, m, mom);
+    }
+    __syncthreads();
+    other = nxt == s.buf0 ? s.buf1 : s.buf0;
+    in = nxt;
   }
 }
 
-// n grid-wide barriers and nothing else: the latency floor of the design.
+// n grid-wide barriers and nothing else: the latency floor of barrier 0.
 __global__ void grid_sync_probe_kernel(int n) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < n; ++i) grid.sync();
 }
 
-static int gl_resident_blocks(size_t smem, int* resident) {
+static const void* gl_kernel(int barrier) {
+  return barrier ? (const void*)gl_fused_kernel<true> : (const void*)gl_fused_kernel<false>;
+}
+
+// CTAs of `threads` threads and `smem` bytes that fit on the card at once.
+static int gl_resident(int barrier, int threads, size_t smem, int* resident) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(gl_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gl_kernel(barrier), cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_fused_kernel,
-                                                      EVC_GL_THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_kernel(barrier), threads, smem);
   *resident = per_sm * sms;
   return (int)e;
 }
@@ -216,37 +530,61 @@ const char* evc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The launch plan for F frames: *grid blocks of which at most *resident fit
-// on the card at once, and the dynamic shared memory in bytes.
-int evc_gl_fused_plan(int F, int bins, int n_fft, int hop, int* grid, int* resident,
-                      int* smem_bytes) {
-  const size_t smem = gl_smem_bytes(bins, n_fft, hop);
-  const int e = gl_resident_blocks(smem, resident);
-  const int n_tiles = (F + EVC_GL_TF - 1) / EVC_GL_TF;
-  *grid = n_tiles < *resident ? n_tiles : *resident;
+// What the card makes of a plan: the CTAs that fit at once and the dynamic
+// shared memory of one CTA. Refuses (cudaErrorInvalidValue) a tile, thread
+// count, barrier or shared-memory size that no launch can take.
+int evc_gl_fused_resident(int tile, int n_fft, int hop, int n_tw, int threads, int barrier,
+                          int* resident, int* smem_bytes) {
+  *resident = 0;
+  *smem_bytes = 0;
+  if (tile < 1 || n_fft < 2 || hop < 1 || n_fft % hop || n_tw < 0 || threads < 32 ||
+      threads > EVC_GL_MAX_THREADS || threads % 32 || (barrier != 0 && barrier != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = gl_smem_bytes(tile, n_fft, hop, n_tw);
+  if (smem > EVC_GL_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   *smem_bytes = (int)smem;
-  return e;
+  return gl_resident(barrier, threads, smem, resident);
 }
 
-// grid_blocks = 0 takes the plan's grid; a larger grid than the co-resident
-// count would deadlock at the first grid sync and is refused with
-// cudaErrorCooperativeLaunchTooLarge before anything is launched.
-int evc_gl_fused(const float* mag, float* ang_re, float* ang_im, float* prev_re,
-                 float* prev_im, float* frames, const float* bsyn_re, const float* bsyn_im,
-                 const float* bana_re, const float* bana_im, const float* inv_w, int F,
-                 int bins, int n_fft, int hop, int n_iter, float mom, int grid_blocks,
-                 void* stream) {
-  int grid = 0, resident = 0, smem_i = 0;
-  const int e = evc_gl_fused_plan(F, bins, n_fft, hop, &grid, &resident, &smem_i);
+// mag (F, n_fft/2+1) f32 >= 0, ang0 and ang_out (F, n_fft/2+1) complex64,
+// frames (2, F, n_fft) f64 scratch, flags (ceil(F/tile),) i32 zeroed,
+// consts (f32) = the M-point twiddles and roots (n_tw complex) ++
+// e^{-2 pi i k / n_fft}, k <= M (n_fft even) ++ window/n_fft ++ window,
+// inv_w (n_fft + hop (F - 1)) f32. The plan: tile, threads (a multiple of
+// 32), barrier (0 grid sync, 1 neighbour hand-off) and the radix schedule,
+// whose product is M (n_fft / 2, or n_fft when odd). Anything else is
+// refused (cudaErrorInvalidValue), and a grid larger than the co-resident
+// CTAs with cudaErrorCooperativeLaunchTooLarge, before anything is launched.
+int evc_gl_fused(const float* mag, const void* ang0, void* ang_out, double* frames, int* flags,
+                 const float* consts, const float* inv_w, int F, int n_fft, int hop, int tile,
+                 int threads, int barrier, const int* radices, int n_stages, int n_iter,
+                 double mom, void* stream) {
+  if (F < 1 || n_fft < 2 || n_iter < 0 || n_stages < 0 || n_stages > EVC_GL_MAX_STAGES ||
+      (long long)tile * n_fft >= EVC_GL_MAX_INDEX ||
+      (long long)F * hop + n_fft >= EVC_GL_MAX_INDEX)
+    return (int)cudaErrorInvalidValue;
+  GlSched sc;
+  sc.n = n_stages;
+  const int m = n_fft % 2 ? n_fft : n_fft / 2;
+  long long prod = 1;
+  int n_tw = m - 1;
+  for (int s = 0; s < n_stages; ++s) {
+    if (radices[s] < 2) return (int)cudaErrorInvalidValue;
+    sc.radix[s] = radices[s];
+    prod *= radices[s];
+    n_tw += radices[s];
+  }
+  if (prod != m) return (int)cudaErrorInvalidValue;
+  int resident = 0, smem = 0;
+  const int e = evc_gl_fused_resident(tile, n_fft, hop, n_tw, threads, barrier, &resident, &smem);
   if (e != 0) return e;
-  if (grid_blocks > 0) grid = grid_blocks;
-  if (resident < 1 || grid > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&mag,     &ang_re,  &ang_im,  &prev_re, &prev_im, &frames,
-                  &bsyn_re, &bsyn_im, &bana_re, &bana_im, &inv_w,   &F,
-                  &bins,    &n_fft,   &hop,     &n_iter,  &mom};
-  const cudaError_t le = cudaLaunchCooperativeKernel(
-      (const void*)gl_fused_kernel, dim3(grid), dim3(EVC_GL_THREADS), args, (size_t)smem_i,
-      (cudaStream_t)stream);
+  const int grid = (F + tile - 1) / tile;
+  if (grid > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&mag,  &ang0, &ang_out, &frames, &flags, &consts, &inv_w, &F,
+                  &n_fft, &hop, &tile,    &n_tw,   &n_iter, &mom,   &sc};
+  const cudaError_t le = cudaLaunchCooperativeKernel(gl_kernel(barrier), dim3(grid),
+                                                     dim3(threads), args, (size_t)smem,
+                                                     (cudaStream_t)stream);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
@@ -254,7 +592,7 @@ int evc_gl_fused(const float* mag, float* ang_re, float* ang_im, float* prev_re,
 int evc_grid_sync_probe(int grid, int n, void* stream) {
   void* args[] = {&n};
   const cudaError_t le = cudaLaunchCooperativeKernel(
-      (const void*)grid_sync_probe_kernel, dim3(grid), dim3(EVC_GL_THREADS), args, 0,
+      (const void*)grid_sync_probe_kernel, dim3(grid), dim3(256), args, 0,
       (cudaStream_t)stream);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();

@@ -10,10 +10,19 @@ at both ends, and zero padding of the tail up to ``length``.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 import torch.nn.functional as F
 
 from exemplars_vc_tpu_torch.dsp.windows import get_window
+
+
+@lru_cache(maxsize=16)
+def _window(name: str, n_fft: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The periodic window on ``device``, made once (read only): a CUDA
+    graph capture of Griffin-Lim's loop may not copy it from the host."""
+    return get_window(name, n_fft, periodic=True, device=device, dtype=dtype)
 
 
 def frame_signal(x: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
@@ -29,7 +38,7 @@ def stft(x: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
         lead = x.shape[:-1]
         x = F.pad(x.reshape(-1, 1, x.shape[-1]), (n_fft // 2, n_fft // 2), mode=pad_mode)
         x = x.reshape(lead + x.shape[-1:])
-    w = get_window(window, n_fft, periodic=True, device=x.device, dtype=x.dtype)
+    w = _window(window, n_fft, x.device, x.dtype)
     return torch.fft.rfft(frame_signal(x, n_fft, hop_length) * w, n=n_fft)
 
 
@@ -48,7 +57,7 @@ def istft(spec: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
           window: str = "hann", center: bool = True,
           length: int | None = None) -> torch.Tensor:
     """Window-sum-normalized inverse STFT; spec (..., n_frames, n_fft//2+1)."""
-    w = get_window(window, n_fft, periodic=True, device=spec.device)
+    w = _window(window, n_fft, spec.device, torch.float32)
     frames = torch.fft.irfft(spec, n=n_fft) * w
     n_frames = spec.shape[-2]
     out_len = n_fft + hop_length * (n_frames - 1)

@@ -4,8 +4,10 @@
 The reference corpus (VCC SF1/TF1) is not in the repository. These files are
 earlier conversions of its utterances and keep their lengths, so a corpus
 made of them reproduces the main path's shapes: 8 pairs in the 1408-frame
-bucket, K ≈ 7680 exemplars, a 688-frame held-out input. Its MCD is not
-comparable to the real corpus's.
+bucket and a 688-frame held-out input. Its K is 6144 exemplars, not the
+real corpus's ≈ 7680: each pair is two conversions of one utterance, so its
+DTW path stays near the diagonal. Its MCD is not comparable to the real
+corpus's.
 
 Layout written under ``root`` (what ``load_speaker`` and the held-out pair
 convention ``<root>/wav/<spk>_100162.wav`` expect)::

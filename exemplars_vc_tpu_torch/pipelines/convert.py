@@ -72,7 +72,9 @@ def _check_slice(cfg: Config) -> None:
         (n.prune_topk > 0, "nmf.prune_topk", 8),
         (n.activation_power != 1.0, "nmf.activation_power", 8),
         (n.h_smooth > 0, "nmf.h_smooth", 8),
-        (n.solver not in ("auto", "mu"), f"nmf.solver={n.solver!r}", 8),
+        (n.solver == "mu_sharded", "nmf.solver='mu_sharded'", 12),
+        (n.solver not in ("auto", "mu", "mu_pallas", "mu_sharded"),
+         f"nmf.solver={n.solver!r}", 8),
         (n.work_dtype != "float32", "nmf.work_dtype", 9),
     ]
     for bad, what, item in unported:
@@ -108,9 +110,13 @@ def _aligned_dicts(cfg: Config, store: ArtifactStore, data_path: str,
 
 def _solve_activations(X: torch.Tensor, A: torch.Tensor, cfg: Config) -> NmfState:
     """The default solver: sklearn-parity MU (``auto`` and ``mu``); on the
-    card the Frobenius update runs the recon/update kernels."""
-    return nmf_activations(X, A, beta_loss=cfg.nmf.beta_loss, tol=cfg.nmf.tol,
-                           max_iter=cfg.nmf.max_iter, l1=cfg.nmf.sparsity_l1)
+    card the Frobenius update runs the recon/update kernels. ``mu_pallas``
+    runs the same MU, as the reference's Pallas solver does, which takes
+    neither ``beta_loss`` nor ``sparsity_l1``: Frobenius without l1."""
+    n = cfg.nmf
+    pallas = n.solver == "mu_pallas"
+    return nmf_activations(X, A, beta_loss="frobenius" if pallas else n.beta_loss, tol=n.tol,
+                           max_iter=n.max_iter, l1=0.0 if pallas else n.sparsity_l1)
 
 
 def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_path: str,

@@ -193,17 +193,34 @@ def test_fused_path_matches_jax(corpus, cfg, jcfg, tmp_path):
     assert _rel_l2(y, yj) < 1e-3
 
 
-@pytest.mark.parametrize("override", [
-    "nmf.context_frames=2", "nmf.h_smooth=1", "nmf.solve_domain=mel",
-    "nmf.normalize_exemplars=true", "nmf.prune_topk=4", "nmf.activation_power=1.5",
-    "data.dict_augment_warps=0.9", "data.dict_prune_frac=0.1",
-    "data.dict_hop_divisor=2", "data.use_stft=false", "nmf.solver=qr",
+@pytest.mark.parametrize("override,item", [
+    ("nmf.context_frames=2", 8), ("nmf.h_smooth=1", 8), ("nmf.solve_domain=mel", 8),
+    ("nmf.normalize_exemplars=true", 8), ("nmf.prune_topk=4", 8),
+    ("nmf.activation_power=1.5", 8), ("data.dict_augment_warps=0.9", 8),
+    ("data.dict_prune_frac=0.1", 8), ("data.dict_hop_divisor=2", 8),
+    ("data.use_stft=false", 10), ("nmf.solver=qr", 8), ("nmf.solver=cd", 8),
+    ("nmf.solver=nnls", 8), ("nmf.solver=mu_sharded", 12),
 ])
-def test_unported_levers_raise(override, corpus, tmp_path):
+def test_unported_levers_raise(override, item, corpus, tmp_path):
     data, src, _ = corpus
     c = load_config(overrides=["misc.nb_file=3", override])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\)"):
         tconvert.convert_utterance(c, ArtifactStore(str(tmp_path)), data, src, device="cpu")
+
+
+def test_mu_pallas_converts_as_mu(corpus, tmp_path):
+    """``nmf.solver=mu_pallas`` runs the same MU as ``mu`` (the reference runs
+    the same math for it): equal n_iter and bit-equal H, Y and audio."""
+    data, src, _ = corpus
+    runs = {}
+    for solver in ("mu", "mu_pallas"):
+        c = load_config(overrides=OVERRIDES + [f"nmf.solver={solver}"])
+        runs[solver] = tconvert.convert_utterance(c, ArtifactStore(str(tmp_path / solver)), data,
+                                                  src, nb_file=3, synth_iters=3, device="cpu")
+    got, ref = runs["mu_pallas"], runs["mu"]
+    assert got.n_iter == ref.n_iter and got.nmf_error == ref.nmf_error
+    assert torch.equal(got.converted["stft"], ref.converted["stft"])
+    np.testing.assert_array_equal(got.audio, ref.audio)
 
 
 def test_standin_corpus_layout(tmp_path):

@@ -129,4 +129,4 @@ def test_wrappers_validate_inputs():
                              C.device)
     with pytest.raises(ValueError, match="int32"):
         dtw_cuda._check_lens(torch.tensor([[5, 4], [1, 1]]), 2, 5, 4, C.device)
-    assert dtw_cuda.fits_smem(1408) and not dtw_cuda.fits_smem(20000)
+    assert dtw_cuda.fits_plan(1408) and not dtw_cuda.fits_plan(40000)

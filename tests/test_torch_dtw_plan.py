@@ -26,7 +26,7 @@ def _check_covers(plan, n, ta):
 
 @pytest.mark.parametrize("ta", [1, 2, 31, 32, 33, 511, 512, 513, 683, 1024, 1025, 1408, 1409,
                                 2048, 4095, 4096, 4097, 8192, 12345, 16384, 16385,
-                                dtw_cuda.MAX_TA])
+                                19_370, 19_371, 32_767, dtw_cuda.MAX_TA])
 @pytest.mark.parametrize("n", [1, 8, 200])
 def test_plan_covers_every_accepted_ta(n, ta):
     plan = dtw_cuda.dtw_wavefront_plan(n, ta, N_SMS)
@@ -47,13 +47,14 @@ def test_plan_at_the_main_path_and_mcd_shapes():
 
 
 def test_max_ta_is_the_first_designs_range():
-    """Every Ta the first design's three shared-memory wavefronts took is
-    still taken, and no more."""
-    assert dtw_cuda.MAX_TA == 232_448 // 12 == 19_370
-    assert dtw_cuda.fits_smem(1) and dtw_cuda.fits_smem(19_370)
-    assert not dtw_cuda.fits_smem(0) and not dtw_cuda.fits_smem(19_371)
+    """Every Ta the widest plan reaches (8 CTAs x 16 warps x 32 lanes x 8
+    rows) is taken, the first design's 19,370 among them, and no more."""
+    assert dtw_cuda.MAX_TA == 8 * 16 * 32 * 8 == 32_768
+    assert dtw_cuda.MAX_TA == (dtw_cuda.DTW_MAX_CLUSTER * dtw_cuda.DTW_MAX_WARPS * 32 * 8)
+    assert dtw_cuda.fits_plan(1) and dtw_cuda.fits_plan(19_370) and dtw_cuda.fits_plan(32_768)
+    assert not dtw_cuda.fits_plan(0) and not dtw_cuda.fits_plan(32_769)
     with pytest.raises(ValueError, match="outside"):
-        dtw_cuda.dtw_wavefront_plan(1, 19_371, N_SMS)
+        dtw_cuda.dtw_wavefront_plan(1, 32_769, N_SMS)
 
 
 # (pairs, Ta) -> (rows a lane, cluster, warps a CTA): the cluster follows the
@@ -61,7 +62,8 @@ def test_max_ta_is_the_first_designs_range():
 # row a lane up to 4096 rows, eight above
 @pytest.mark.parametrize("n,ta,want", [
     (3, 1409, (1, 8, 6)), (40, 1409, (1, 3, 15)), (132, 512, (1, 1, 16)),
-    (132, 4096, (1, 8, 16)), (1, 4097, (8, 6, 3)), (1, dtw_cuda.MAX_TA, (8, 8, 10)),
+    (132, 4096, (1, 8, 16)), (1, 4097, (8, 6, 3)), (1, 19_370, (8, 8, 10)),
+    (1, dtw_cuda.MAX_TA, (8, 8, 16)), (8, dtw_cuda.MAX_TA, (8, 8, 16)),
 ])
 def test_plan_at_chosen_shapes(n, ta, want):
     plan = dtw_cuda.dtw_wavefront_plan(n, ta, N_SMS)
@@ -69,7 +71,7 @@ def test_plan_at_chosen_shapes(n, ta, want):
     assert (plan["rows_per_lane"], plan["cluster"], plan["warps_per_cta"]) == want
 
 
-@pytest.mark.parametrize("ta", [0, -1, dtw_cuda.MAX_TA + 1, 32_768])
+@pytest.mark.parametrize("ta", [0, -1, dtw_cuda.MAX_TA + 1, 65_536])
 def test_impossible_plans_raise(ta):
     with pytest.raises(ValueError, match="outside"):
         dtw_cuda.dtw_wavefront_plan(3, ta, N_SMS)

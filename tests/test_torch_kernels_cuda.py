@@ -89,10 +89,11 @@ def test_dtw_kernels_at_the_mcd_shape(cuda):
 
 @pytest.mark.cuda
 def test_dtw_kernels_long_pair(cuda):
-    """The longest source the wrappers take (Ta = 19,370): 8 rows a lane
-    over a cluster of 8 CTAs; a path of ~21k steps through ~90 windows."""
+    """The longest source the wrappers take (Ta = 32,768): 8 rows a lane
+    over a cluster of 8 CTAs of 16 warps; a path of ~35k steps through ~140
+    windows (the codes take 1.1 GB)."""
     ta, tb = dtw_cuda.MAX_TA, 2000
-    assert dtw_cuda.fits_smem(ta) and not dtw_cuda.fits_smem(ta + 1)
+    assert dtw_cuda.fits_plan(ta) and not dtw_cuda.fits_plan(ta + 1)
     _dtw_check(cuda, ta, tb, torch.tensor([[ta, tb]], dtype=torch.int32), dim=4)
 
 
@@ -220,8 +221,8 @@ def test_wrappers_reject_bad_inputs(cuda):
         nmf_cuda.nmf_recon(H, torch.zeros((8, 3), device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="expected"):
         nmf_cuda.nmf_recon(H, torch.zeros((8, 3)))
-    with pytest.raises(ValueError, match="shared"):
-        dtw_cuda.dtw_wavefront(torch.zeros((1, 20000, 2), device=cuda),
+    with pytest.raises(ValueError, match="queue 1 item 12"):
+        dtw_cuda.dtw_wavefront(torch.zeros((1, dtw_cuda.MAX_TA + 1, 2), device=cuda),
                                torch.tensor([[1, 1]], dtype=torch.int32, device=cuda))
 
 
@@ -309,8 +310,10 @@ def test_nmf_plan_that_cannot_launch_raises(cuda, kernel, fault):
         nmf_cuda.co_resident_clusters(kernel, plan, F, K, D)
 
 
+# n_fft 48 = 16 x 3: a radix-3 pass (M = 24 = 8 x 3)
 @pytest.mark.cuda
-@pytest.mark.parametrize("F,n_fft,hop", [(13, 32, 8), (100, 64, 16), (688, 400, 80)])
+@pytest.mark.parametrize("F,n_fft,hop", [(13, 32, 8), (100, 64, 16), (300, 48, 16),
+                                         (688, 400, 80)])
 def test_gl_fused_matches_twin(cuda, F, n_fft, hop):
     rng = np.random.default_rng(F)
     nb = n_fft // 2 + 1
@@ -331,9 +334,12 @@ def test_gl_fused_matches_twin(cuda, F, n_fft, hop):
     assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) <= 1e-4
     if F < 50:
         assert float((got - ref).abs().max()) <= 1e-4
-    # a smaller grid walks several tiles per block and computes the same
-    got2 = griffin_lim_cuda.gl_angles_fused(mag, ang, n_fft, hop, 6, 0.9, _grid_blocks=3)
-    assert torch.equal(got2, got)
+    # another tile (fewer CTAs) and the grid-sync barrier compute the same bits
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = griffin_lim_cuda.gl_fused_plan(F, n_fft, hop, n_sms)
+    for other in (dict(plan, tile=plan["tile"] + 2), dict(plan, barrier="grid")):
+        got2 = griffin_lim_cuda.gl_angles_fused(mag, ang, n_fft, hop, 6, 0.9, _plan=other)
+        assert torch.equal(got2, got), other
 
 
 @pytest.mark.cuda
@@ -354,8 +360,57 @@ def test_fused_wrappers_reject_bad_inputs(cuda):
         griffin_lim_cuda.gl_angles_fused(mag, ang.cpu(), 400, 80, 2, 0.9)
     with pytest.raises(ValueError, match="n_fft//2"):
         griffin_lim_cuda.gl_angles_fused(mag[:, :100], ang[:, :100], 400, 80, 2, 0.9)
-    # a grid larger than the co-resident block count would deadlock: refused
-    plan = griffin_lim_cuda.gl_fused_plan(10, 400, 80)
+    # a grid larger than the co-resident CTA count would deadlock: refused
+    # before launch, nothing counted
+    plan = dict(griffin_lim_cuda.gl_fused_plan(10, 400, 80, 132), tile=1)
+    F = griffin_lim_cuda.gl_fused_resident(plan, 400, 80)["resident"] + 1
+    before = griffin_lim_cuda.gl_angles_fused.launches
     with pytest.raises(RuntimeError, match="evc_gl_fused"):
-        griffin_lim_cuda.gl_angles_fused(mag, ang, 400, 80, 2, 0.9,
-                                         _grid_blocks=plan["resident"] + 1)
+        griffin_lim_cuda.gl_angles_fused(torch.ones((F, 201), device=cuda),
+                                         torch.ones((F, 201), dtype=torch.complex64,
+                                                    device=cuda), 400, 80, 2, 0.9, _plan=plan)
+    assert griffin_lim_cuda.gl_angles_fused.launches == before
+
+
+@pytest.mark.cuda
+def test_gl_fused_plan_matches_the_card(cuda):
+    """The pure plan's shared memory is what the C side computes, and its
+    grid fits the card at once (a cooperative launch needs that)."""
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for F, n_fft, hop in ((688, 400, 80), (300, 48, 16), (13, 32, 8), (1409, 400, 80)):
+        plan = griffin_lim_cuda.gl_fused_plan(F, n_fft, hop, n_sms)
+        got = griffin_lim_cuda.gl_fused_resident(plan, n_fft, hop)
+        assert got["smem_bytes"] == plan["smem_bytes"]
+        assert plan["grid"] <= got["resident"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [True, False])
+def test_griffin_lim_graph_equals_eager(cuda, seeded):
+    """The production loop replays captured graphs on a CUDA tensor: bit-
+    equal to the eager loop (the same kernels in the same order), with a
+    remainder graph (2 blocks + 5 iterations), and a second call of the
+    shape captures nothing."""
+    from exemplars_vc_tpu_torch.dsp.griffin_lim import GRAPH_BLOCK, griffin_lim
+    from exemplars_vc_tpu_torch.dsp.stft import stft
+
+    rng = np.random.default_rng(11)
+    n = 16000 + 80 * int(seeded)            # a shape of its own for each case
+    S = stft(torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=cuda))
+    mag = torch.abs(S) * 1.1
+    n_iter = 2 * GRAPH_BLOCK + 5
+
+    def run(m, graph):
+        if seeded:
+            return griffin_lim(m, n_iter=n_iter, init_phase=S, return_phase=True, _graph=graph)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        return griffin_lim(m, n_iter=n_iter, generator=gen, return_phase=True, _graph=graph)
+
+    before = griffin_lim.captures
+    y_g, a_g = run(mag, True)
+    assert griffin_lim.captures == before + 2
+    y_e, a_e = run(mag, False)
+    assert torch.equal(a_g, a_e) and torch.equal(y_g, y_e)
+    y_g2, _ = run(mag * 0.5, True)
+    assert griffin_lim.captures == before + 2
+    assert torch.equal(y_g2, run(mag * 0.5, False)[0])
