@@ -19,7 +19,8 @@ Phases (any failure exits non-zero and prints no result line):
    backtrace must be exactly equal (the DP is min/add only) at the main
    path's 8 × 1408² (timed, with the time a diagonal step), the MCD's
    1 × 683² (timed), 1409 × 1300, 300 × 517, 517 × 300 (with la = 1 and
-   lb = 1 rows) and the longest Ta the wrappers take, 19,370 × 2000; ``nmf_recon``,
+   lb = 1 rows) and the longest Ta the wrappers take, 32,768 × 2000 (timed,
+   its twins once), with 32,769 refused naming ROADMAP queue 1 item 12; ``nmf_recon``,
    ``nmf_update`` and the one-kernel MU iteration ``nmf_mu_fused`` within a
    relative error max|kernel − plain| / max|plain| of 1e-5 for one call and
    1e-4 after 10 MU steps (they sum in different orders), all three also at
@@ -27,20 +28,28 @@ Phases (any failure exits non-zero and prints no result line):
    launch plans of the two split-K cluster kernels (grid, cluster, tile,
    shared bytes, clusters the card holds at once) and of ``nmf_update``
    (CTAs, waves at the CTAs an SM that the occupancy query reports, shared
-   bytes); the fused Griffin-Lim ``gl_angles_fused`` after 6
+   bytes); the fused Griffin-Lim ``gl_angles_fused`` at 688 × 201 (n_fft
+   400, hop 80) and 300 × 25 (n_fft 48, hop 16: a radix-3 pass) after 6
    iterations within 1e-4 relative L2 of its twin's unit phases and, against
    a float64 run of the twin, a mean phase error no more than twice the
    float32 twin's own (+ 1e-7): float32 rounding alone moves the phase of a
    bin whose update nearly cancels by ~1e-3 at this shape, so the
-   element-wise max is reported, not gated. Timed at 300 iterations beside
-   its twin, the production ``griffin_lim`` and the grid-sync floor;
+   element-wise max is reported, not gated; two other tiles bit-equal to
+   the plan's. Timed at 300 iterations beside its twin, the graphed cuFFT
+   yardstick (``gl_yardstick``, its ``library_ms``), the production
+   ``griffin_lim`` graphed and eager, and the grid-sync floor;
 3. the main path: ``convert_utterance`` on the stand-in corpus (8 pairs,
    held-out utterance 100162) with the default config, launch counters
    reset just before and read just after; every kernel of the default path
    must have launched and neither fused kernel, the audio must be finite
-   and of the input's length, n_iter ≤ max_iter and the MCD finite. Then
-   three warm runs for audio-seconds per second, and ``torch.profiler`` over
-   one more: its summed device time, busy share and the hand-written
+   and of the input's length, n_iter ≤ max_iter and the MCD finite, and its
+   Griffin-Lim must have captured a graph. Then three warm runs for
+   audio-seconds per second (capturing nothing more) and one with fenced
+   stages; the production ``griffin_lim`` on the main path's Y graphed
+   against the eager loop (``torch.equal``) for graphs of 10, 50 and 300
+   iterations, each with its first call (capture) and warm wall and the
+   device memory its graphs hold; and ``torch.profiler`` over one more
+   conversion: its summed device time, busy share and the hand-written
    kernels' calls and device time (each warm run uses a fresh store, so the
    dictionary build and its DTW run every time);
 4. the fused path (opt-in, as in the JAX package), counters reset just
@@ -432,7 +441,7 @@ def phase_kernels(torch, np, dev) -> dict:
 
     # the fused Griffin-Lim against its twins, 6 iterations under the PERF.md
     # §2 gates, at n_fft 48 (M = 24 = 8 x 3, a radix-3 pass) and at the main
-    # path's shape; another tile and the grid-sync barrier give equal bits
+    # path's shape; other tiles give equal bits
     def gl_case(Fg, n_fft, hop):
         nb = n_fft // 2 + 1
         mag = torch.as_tensor(np.abs(rng.standard_normal((Fg, nb))).astype(np.float32),
@@ -443,7 +452,7 @@ def phase_kernels(torch, np, dev) -> dict:
         p6 = gl_angles_fused_plain(mag, ang, n_fft, hop, 6, 0.9)
         r6 = gl_angles_fused_plain(mag.double(), ang.to(torch.complex128), n_fft, hop, 6, 0.9)
         plan = gl_fused_plan(Fg, n_fft, hop, n_sms)
-        others = (dict(plan, tile=plan["tile"] + 2), dict(plan, barrier="grid"))
+        others = (dict(plan, tile=plan["tile"] + 1), dict(plan, tile=plan["tile"] + 2))
         same = all(torch.equal(gl_angles_fused(mag, ang, n_fft, hop, 6, 0.9, _plan=o), g6)
                    for o in others)
         torch.cuda.synchronize()
@@ -455,8 +464,8 @@ def phase_kernels(torch, np, dev) -> dict:
             f"vs twin max |phase diff| {e_gl:.3g}, rel L2 {e_l2:.3g} (limit 1e-4); against "
             f"float64, mean / max: kernel {float(d_k.mean()):.3g} / {float(d_k.max()):.3g}, "
             f"float32 twin {float(d_p.mean()):.3g} / {float(d_p.max()):.3g} (limit: kernel mean "
-            f"<= 2x the twin's + 1e-7); tile {plan['tile']} + 2 and the grid-sync barrier "
-            f"bit-equal: {same}; plan: {plan['grid']} CTAs of {plan['threads']} threads, tile "
+            f"<= 2x the twin's + 1e-7); tiles {plan['tile']} + 1 and + 2 bit-equal: {same}; "
+            f"plan: {plan['grid']} CTAs of {plan['threads']} threads, tile "
             f"{plan['tile']}, radices {plan['radices']}, {card['smem_bytes']} B shared memory, "
             f"{card['resident']} CTAs fit at once")
         if not (e_l2 <= 1e-4 and float(d_k.mean()) <= 2 * float(d_p.mean()) + 1e-7 and same):
@@ -475,14 +484,9 @@ def phase_kernels(torch, np, dev) -> dict:
     if e_y > 1e-4:
         fail("the graphed cuFFT yardstick does not compute the twin's iteration")
     replay300, _ = gl_yardstick(torch, mag, ang, n_fft, hop, n_it, 0.9)
-    # the two barriers in turns (neighbour, grid, grid, neighbour)
-    turns = {"neighbour": [], "grid": []}
-    for b in ("neighbour", "grid", "grid", "neighbour"):
-        p_b = dict(plan, barrier=b)
-        turns[b].append(cuda_ms(lambda: gl_angles_fused(mag, ang, n_fft, hop, n_it, 0.9,
-                                                        _plan=p_b), reps=5))
     out["gl_angles_fused"] = dict(
-        max_abs_err=e_gl, ms=statistics.mean(turns[plan["barrier"]]),
+        max_abs_err=e_gl, ms=cuda_ms(lambda: gl_angles_fused(mag, ang, n_fft, hop, n_it, 0.9),
+                                     reps=5),
         plain_ms=cuda_ms(lambda: gl_angles_fused_plain(mag, ang, n_fft, hop, n_it, 0.9), reps=3),
         library_ms=cuda_ms(replay300, reps=5))
     # bound: each iteration and frame needs an inverse and a forward real FFT
@@ -500,9 +504,7 @@ def phase_kernels(torch, np, dev) -> dict:
             griffin_lim(mag, n_fft=n_fft, hop_length=hop, n_iter=n_it, init_phase=ang,
                         _graph=graph)
         prod[graph] = (cuda_ms(run, reps=3), device_ms(run))
-    say(f"  {n_it} iterations: fused kernel, neighbour hand-off "
-        f"{[round(t, 4) for t in turns['neighbour']]} ms, grid sync "
-        f"{[round(t, 4) for t in turns['grid']]} ms (plan: {plan['barrier']}); twin "
+    say(f"  {n_it} iterations: fused kernel {out['gl_angles_fused']['ms']:.4f} ms; twin "
         f"{out['gl_angles_fused']['plain_ms']:.4f} ms; graphed cuFFT yardstick "
         f"{out['gl_angles_fused']['library_ms']:.4f} ms; floor of {n_it} grid syncs on "
         f"{plan['grid']} blocks {sync_ms:.4f} ms ({sync_ms / n_it * 1e3:.3f} us each); "
@@ -582,6 +584,10 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
     med = statistics.median(warm)
     say(f"main path: warm runs {[round(w, 4) for w in warm]} s, audio {audio_s:.3f} s, "
         f"{audio_s / med:.3f} audio-s/s (median)")
+    fenced = convert_utterance(cfg, ArtifactStore(os.path.join(root, "store_fenced")), data,
+                               src, nb_file=8, sync_stages=True, device=dev)
+    say(f"main path: a warm run's fenced stages (s) "
+        f"{json.dumps({k: round(v, 6) for k, v in fenced.timings.items()})}")
 
     if gl_mod.griffin_lim.captures != captures:
         fail(f"a warm run captured graphs again: {gl_mod.griffin_lim.captures - captures}")
@@ -600,7 +606,7 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
 
     y_eager = gl(graph=False)
     default_block = gl_mod.GRAPH_BLOCK
-    for block in (default_block, 10, iters):
+    for block in sorted({default_block, 10, 50, iters}):
         gl_mod.GRAPH_BLOCK = block
         gl_mod._loops.clear()
         torch.cuda.synchronize()

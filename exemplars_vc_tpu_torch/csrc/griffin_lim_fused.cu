@@ -46,26 +46,26 @@
 // a global buffer (double-buffered by iteration parity) and reads, with
 // __ldcg (L2, never a stale L1 line), the frames that overlap its signal
 // segment: its own and r - 1 = n_fft/hop - 1 on each side. The iteration
-// barrier is either one grid sync (barrier 0) or a neighbour hand-off
-// (barrier 1): the CTA publishes its step with st.release.gpu after a
-// __threadfence, and waits with ld.acquire.gpu polls only for the tiles
-// whose frames overlap its segment. A CTA then runs at most one iteration
-// ahead of a neighbour; a neighbour's step tag of i + 2 also says that it
-// has read this CTA's frames of iteration i, so rewriting that parity is
-// safe. Both variants launch cooperatively, which guarantees that every CTA
-// is resident (the polls and the grid sync deadlock otherwise); a grid
-// larger than the co-resident CTAs is refused before launch.
+// barrier is one grid sync (a cooperative launch; a grid larger than the
+// co-resident CTAs is refused before launch). A neighbour hand-off, each CTA
+// waiting with ld.acquire.gpu polls only for the tiles whose frames overlap
+// its segment (step tags published with st.release.gpu), measured the same
+// (PERF.md, PR 6): the barrier is not where the iteration's time goes.
 //
-// Determinism: a frame's arithmetic does not depend on the tile or the
-// barrier (the overlap-add sums frames in ascending order from the one
-// global buffer), so two plans give equal bits.
+// Determinism: a frame's arithmetic does not depend on the tile (the
+// overlap-add sums frames in ascending order from the one global buffer),
+// so two plans give equal bits.
 //
 // What bounds it on this card (NVIDIA H100 80GB HBM3, 700 W): not bytes and
 // not operations (an inverse and a forward real FFT a frame and iteration,
 // ~0.066 ms for 300 iterations at 688 x 201, n_fft 400, at the fp32 rate)
-// but the latency of one iteration's dependent steps: 2 x 3 butterfly
-// passes, each a shared-memory round trip and a __syncthreads, the frame
-// exchange through L2 and the barrier. PERF.md has the measured times.
+// but one SM's throughput on its tile: one CTA an SM runs every step of an
+// iteration in turn, with 5-16 of its warps busy. Taking parts out of the
+// kernel (tools/gl_probe_torch.py) put the six FFT passes at ~40 % of the
+// time, the frame store and the overlap-add's loads through L2 at ~27 %, the
+// grid sync at ~12 % and the spectrum pass at ~7 %: each pass moves every
+// value through shared memory twice in float64 and waits on float64
+// latency. PERF.md has the numbers.
 //
 // Build: plain nvcc, no -rdc. Since CUDA 11 the grid barrier of
 // cooperative_groups::this_grid().sync() is implemented in the header and
@@ -304,16 +304,6 @@ __device__ __forceinline__ double2 gl_update(double2 x, double2* prev, const flo
   return make_double2(mg * a.x, mg * a.y);
 }
 
-__device__ __forceinline__ void gl_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ int gl_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
 // One work item of the spectrum pass, for frame f of the tile: bins k and
 // M - k (n_fft even, k <= M/2; k = 0 also takes Nyquist, M), or bin k
 // (n_fft odd, k < bins). `z` is the frame's forward transform (null on the
@@ -369,10 +359,9 @@ __device__ __forceinline__ void gl_spectrum(const double2* z, double2* nz, const
   }
 }
 
-template <bool NEIGHBOUR>
 __global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
     gl_fused_kernel(const float* __restrict__ mag_g, const float2* __restrict__ ang0,
-                    float2* __restrict__ ang_out, double* frames, int* flags,
+                    float2* __restrict__ ang_out, double* frames,
                     const float* __restrict__ consts, const float* __restrict__ inv_w, int F,
                     int n, int hop, int tile, int n_tw, int n_iter, double mom,
                     const GlSched sc) {
@@ -383,7 +372,6 @@ __global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
   const int m = even ? n / 2 : n, n_rtw = even ? m + 1 : 0;
   const int items = even ? m / 2 + 1 : bins;    // spectrum work items a frame
   const int t0 = blockIdx.x * tile, nt = min(tile, F - t0);
-  const int r1 = n / hop - 1;                   // frames overlapping on each side
   const int seg_len = (nt - 1) * hop + n;
   const float rcp_m = 1.0f / m, rcp_items = 1.0f / items, rcp_hop = 1.0f / hop;
   const GlSmem s = gl_carve(evc_gl_smem, tile, n, hop, n_tw);
@@ -437,21 +425,7 @@ __global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
         fr_t[(size_t)f * n + j] = s.ws[j] * w.x;
       }
     }
-    if (NEIGHBOUR) {
-      __syncthreads();   // every frame of the tile is stored
-      if (tid == 0) {
-        __threadfence();
-        gl_release(flags + blockIdx.x, it + 1);
-      }
-      const int lo = max(0, t0 - r1) / tile, hi = min(F - 1, t0 + nt - 1 + r1) / tile;
-      for (int c = lo + tid; c <= hi; c += nth)
-        if (c != (int)blockIdx.x)
-          while (gl_acquire(flags + c) < it + 1) {
-          }
-      __syncthreads();
-    } else {
-      cg::this_grid().sync();
-    }
+    cg::this_grid().sync();   // every frame of this iteration is stored
     // overlap-add of the tile's segment, frames in ascending order; the
     // samples of up to EVC_GL_OLA_LOADS frames are loaded before the first
     // add, so a sample waits for one L2 round trip, not one a frame
@@ -498,28 +472,24 @@ __global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
   }
 }
 
-// n grid-wide barriers and nothing else: the latency floor of barrier 0.
+// n grid-wide barriers and nothing else: the barrier's latency floor.
 __global__ void grid_sync_probe_kernel(int n) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < n; ++i) grid.sync();
 }
 
-static const void* gl_kernel(int barrier) {
-  return barrier ? (const void*)gl_fused_kernel<true> : (const void*)gl_fused_kernel<false>;
-}
-
 // CTAs of `threads` threads and `smem` bytes that fit on the card at once.
-static int gl_resident(int barrier, int threads, size_t smem, int* resident) {
+static int gl_resident(int threads, size_t smem, int* resident) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gl_kernel(barrier), cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(gl_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_kernel(barrier), threads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_fused_kernel, threads, smem);
   *resident = per_sm * sms;
   return (int)e;
 }
@@ -532,33 +502,32 @@ const char* evc_error_string(int code) {
 
 // What the card makes of a plan: the CTAs that fit at once and the dynamic
 // shared memory of one CTA. Refuses (cudaErrorInvalidValue) a tile, thread
-// count, barrier or shared-memory size that no launch can take.
-int evc_gl_fused_resident(int tile, int n_fft, int hop, int n_tw, int threads, int barrier,
-                          int* resident, int* smem_bytes) {
+// count or shared-memory size that no launch can take.
+int evc_gl_fused_resident(int tile, int n_fft, int hop, int n_tw, int threads, int* resident,
+                          int* smem_bytes) {
   *resident = 0;
   *smem_bytes = 0;
   if (tile < 1 || n_fft < 2 || hop < 1 || n_fft % hop || n_tw < 0 || threads < 32 ||
-      threads > EVC_GL_MAX_THREADS || threads % 32 || (barrier != 0 && barrier != 1))
+      threads > EVC_GL_MAX_THREADS || threads % 32)
     return (int)cudaErrorInvalidValue;
   const size_t smem = gl_smem_bytes(tile, n_fft, hop, n_tw);
   if (smem > EVC_GL_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   *smem_bytes = (int)smem;
-  return gl_resident(barrier, threads, smem, resident);
+  return gl_resident(threads, smem, resident);
 }
 
 // mag (F, n_fft/2+1) f32 >= 0, ang0 and ang_out (F, n_fft/2+1) complex64,
-// frames (2, F, n_fft) f64 scratch, flags (ceil(F/tile),) i32 zeroed,
-// consts (f32) = the M-point twiddles and roots (n_tw complex) ++
-// e^{-2 pi i k / n_fft}, k <= M (n_fft even) ++ window/n_fft ++ window,
-// inv_w (n_fft + hop (F - 1)) f32. The plan: tile, threads (a multiple of
-// 32), barrier (0 grid sync, 1 neighbour hand-off) and the radix schedule,
-// whose product is M (n_fft / 2, or n_fft when odd). Anything else is
-// refused (cudaErrorInvalidValue), and a grid larger than the co-resident
-// CTAs with cudaErrorCooperativeLaunchTooLarge, before anything is launched.
-int evc_gl_fused(const float* mag, const void* ang0, void* ang_out, double* frames, int* flags,
+// frames (2, F, n_fft) f64 scratch, consts (f32) = the M-point twiddles and
+// roots (n_tw complex) ++ e^{-2 pi i k / n_fft}, k <= M (n_fft even) ++
+// window/n_fft ++ window, inv_w (n_fft + hop (F - 1)) f32. The plan: tile,
+// threads (a multiple of 32) and the radix schedule, whose product is M
+// (n_fft / 2, or n_fft when odd). Anything else is refused
+// (cudaErrorInvalidValue), and a grid larger than the co-resident CTAs with
+// cudaErrorCooperativeLaunchTooLarge, before anything is launched.
+int evc_gl_fused(const float* mag, const void* ang0, void* ang_out, double* frames,
                  const float* consts, const float* inv_w, int F, int n_fft, int hop, int tile,
-                 int threads, int barrier, const int* radices, int n_stages, int n_iter,
-                 double mom, void* stream) {
+                 int threads, const int* radices, int n_stages, int n_iter, double mom,
+                 void* stream) {
   if (F < 1 || n_fft < 2 || n_iter < 0 || n_stages < 0 || n_stages > EVC_GL_MAX_STAGES ||
       (long long)tile * n_fft >= EVC_GL_MAX_INDEX ||
       (long long)F * hop + n_fft >= EVC_GL_MAX_INDEX)
@@ -576,13 +545,13 @@ int evc_gl_fused(const float* mag, const void* ang0, void* ang_out, double* fram
   }
   if (prod != m) return (int)cudaErrorInvalidValue;
   int resident = 0, smem = 0;
-  const int e = evc_gl_fused_resident(tile, n_fft, hop, n_tw, threads, barrier, &resident, &smem);
+  const int e = evc_gl_fused_resident(tile, n_fft, hop, n_tw, threads, &resident, &smem);
   if (e != 0) return e;
   const int grid = (F + tile - 1) / tile;
   if (grid > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&mag,  &ang0, &ang_out, &frames, &flags, &consts, &inv_w, &F,
-                  &n_fft, &hop, &tile,    &n_tw,   &n_iter, &mom,   &sc};
-  const cudaError_t le = cudaLaunchCooperativeKernel(gl_kernel(barrier), dim3(grid),
+  void* args[] = {&mag, &ang0, &ang_out, &frames, &consts, &inv_w, &F,
+                  &n_fft, &hop, &tile, &n_tw, &n_iter, &mom, &sc};
+  const cudaError_t le = cudaLaunchCooperativeKernel((const void*)gl_fused_kernel, dim3(grid),
                                                      dim3(threads), args, (size_t)smem,
                                                      (cudaStream_t)stream);
   if (le != cudaSuccess) return (int)le;

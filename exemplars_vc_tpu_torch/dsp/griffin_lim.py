@@ -59,6 +59,8 @@ class _GraphedLoop:
         self.args = (n_fft, hop_length, alpha)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.lock = threading.Lock()
+        self.done = torch.cuda.Event()
         # one eager iteration on a side stream first: cuFFT's plans and the
         # STFT's window are made outside the capture
         side = torch.cuda.Stream(device)
@@ -81,14 +83,21 @@ class _GraphedLoop:
 
     def run(self, mag: torch.Tensor, angles: torch.Tensor, n_iter: int) -> torch.Tensor:
         block = GRAPH_BLOCK
-        self.mag.copy_(mag)
-        self.angles.copy_(angles)
-        self.prev.zero_()
-        for _ in range(n_iter // block):
-            self._graph(block).replay()
-        if n_iter % block:
-            self._graph(n_iter % block).replay()
-        return self.angles.clone()
+        stream = torch.cuda.current_stream(self.mag.device)
+        # the static buffers are shared: callers enqueue one at a time, and a
+        # caller on another stream waits until the last one's result is out
+        with self.lock:
+            stream.wait_event(self.done)
+            self.mag.copy_(mag)
+            self.angles.copy_(angles)
+            self.prev.zero_()
+            for _ in range(n_iter // block):
+                self._graph(block).replay()
+            if n_iter % block:
+                self._graph(n_iter % block).replay()
+            out = self.angles.clone()
+            self.done.record(stream)
+        return out
 
 
 _loops: OrderedDict[tuple, _GraphedLoop] = OrderedDict()

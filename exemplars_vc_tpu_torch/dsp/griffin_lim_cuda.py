@@ -47,11 +47,6 @@ from exemplars_vc_tpu_torch.dsp.windows import get_window
 from exemplars_vc_tpu_torch.kernels.build import SMEM_LIMIT_BYTES, check, load_library
 
 GL_MAX_THREADS = 512     # threads a CTA (EVC_GL_MAX_THREADS)
-GL_MAX_STAGES = 24       # radix stages of one FFT (EVC_GL_MAX_STAGES)
-# the iteration barrier: "neighbour" waits only for the tiles whose frames
-# overlap the CTA's signal segment (step-tagged flags, release/acquire at gpu
-# scope); "grid" is one grid-wide sync an iteration
-GL_BARRIERS = {"grid": 0, "neighbour": 1}
 
 
 @lru_cache(maxsize=32)
@@ -229,15 +224,14 @@ def _smem_bytes(tile: int, n_fft: int, hop: int) -> int:
 def supports(n_frames: int, n_fft: int, hop: int) -> bool:
     """Whether the fused kernel takes this shape: hop divides n_fft (the
     JAX kernel's chunked layout needs it; the kernel's frames overlap r =
-    n_fft/hop times), and a tile of two frames fits one block's shared
-    memory (n_fft up to 2048 at any such hop)."""
+    n_fft/hop times), and a tile of one frame fits one block's shared
+    memory (n_fft up to 2048 at any such hop, more at wider hops)."""
     if n_frames < 1 or n_fft < 2 or hop <= 0 or n_fft % hop != 0:
         return False
-    return _smem_bytes(2, n_fft, hop) <= SMEM_LIMIT_BYTES
+    return _smem_bytes(1, n_fft, hop) <= SMEM_LIMIT_BYTES
 
 
-def gl_fused_plan(n_frames: int, n_fft: int, hop: int, n_sms: int,
-                  barrier: str = "neighbour") -> dict:
+def gl_fused_plan(n_frames: int, n_fft: int, hop: int, n_sms: int) -> dict:
     """The kernel's launch plan on a card of ``n_sms`` SMs.
 
     One CTA owns a tile of ``tile`` consecutive frames and keeps the tile's
@@ -252,8 +246,6 @@ def gl_fused_plan(n_frames: int, n_fft: int, hop: int, n_sms: int,
     if not supports(n_frames, n_fft, hop):
         raise ValueError(f"gl_fused_plan: n_frames={n_frames}, n_fft={n_fft}, hop={hop} not "
                          f"supported (hop must divide n_fft)")
-    if barrier not in GL_BARRIERS:
-        raise ValueError(f"gl_fused_plan: barrier {barrier!r} not in {sorted(GL_BARRIERS)}")
     tile = _cdiv(n_frames, max(n_sms, 1))
     smem = _smem_bytes(tile, n_fft, hop)
     if smem > SMEM_LIMIT_BYTES:
@@ -262,10 +254,10 @@ def gl_fused_plan(n_frames: int, n_fft: int, hop: int, n_sms: int,
     m = transform_len(n_fft)
     radices = fft_radices(m)
     items = m // 2 + 1 if n_fft % 2 == 0 else n_fft // 2 + 1
-    widest = max([items] + [m if R > 8 else m // R for R in radices])
+    widest = max([items] + [m // R if R in (2, 3, 4, 5, 8) else m for R in radices])
     threads = min(GL_MAX_THREADS, max(64, 32 * _cdiv(tile * widest, 32)))
     return {"tile": tile, "grid": _cdiv(n_frames, tile), "threads": threads,
-            "smem_bytes": smem, "radices": radices, "barrier": barrier}
+            "smem_bytes": smem, "radices": radices}
 
 
 # ---------------------------------------------------------------------------
@@ -354,11 +346,10 @@ def gl_fused_resident(plan: dict, n_fft: int, hop: int) -> dict:
     fn = lib.evc_gl_fused_resident
     fn.restype = ctypes.c_int
     ci, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ci, ci, ci, ci, ci, ci, pi, pi]
+    fn.argtypes = [ci, ci, ci, ci, ci, pi, pi]
     resident, smem = ctypes.c_int(), ctypes.c_int()
     check(fn(plan["tile"], n_fft, hop, len(fft_tables(transform_len(n_fft))), plan["threads"],
-             GL_BARRIERS[plan["barrier"]], ctypes.byref(resident), ctypes.byref(smem)),
-          "evc_gl_fused_resident", lib)
+             ctypes.byref(resident), ctypes.byref(smem)), "evc_gl_fused_resident", lib)
     return {"resident": resident.value, "smem_bytes": smem.value}
 
 
@@ -388,10 +379,9 @@ def gl_angles_fused(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft: int, 
     final unit phases after ``n_iter`` fused fast-GL iterations; on CUDA one
     cooperative launch of ``evc_gl_fused`` with :func:`gl_fused_plan`
     (counted in ``gl_angles_fused.launches``). Raises ValueError where hop
-    does not divide n_fft. ``_plan`` overrides the plan (another tile or
-    barrier gives equal bits); the C entry refuses a plan the card cannot
-    launch (a grid larger than the co-resident CTAs would deadlock) and the
-    call raises."""
+    does not divide n_fft. ``_plan`` overrides the plan (another tile gives
+    equal bits); the C entry refuses a plan the card cannot launch (a grid
+    larger than the co-resident CTAs would deadlock) and the call raises."""
     if magnitude.device.type == "cpu":
         return gl_angles_fused_plain(magnitude, angles0, n_fft, hop, n_iter, momentum,
                                      window)
@@ -406,7 +396,6 @@ def gl_angles_fused(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft: int, 
     ang0 = angles0.to(torch.complex64).contiguous()
     out = torch.empty_like(ang0)
     frames = torch.empty((2, F, n_fft), dtype=torch.float64, device=dev)
-    flags = torch.zeros((_cdiv(F, plan["tile"]),), dtype=torch.int32, device=dev)
     consts, inv_w = _device_consts(F, n_fft, hop, window, dev)
     radices = (ctypes.c_int * max(1, len(plan["radices"])))(*plan["radices"])
     mom = float(momentum) / (1.0 + float(momentum))
@@ -414,14 +403,14 @@ def gl_angles_fused(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft: int, 
     fn = lib.evc_gl_fused
     fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 6 + [ctypes.POINTER(ctypes.c_int), ci, ci,
-                                         ctypes.c_double, vp]
+    fn.argtypes = [vp] * 6 + [ci] * 5 + [ctypes.POINTER(ctypes.c_int), ci, ci, ctypes.c_double,
+                                         vp]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(fn(mag.data_ptr(), ang0.data_ptr(), out.data_ptr(), frames.data_ptr(),
-                 flags.data_ptr(), consts.data_ptr(), inv_w.data_ptr(), F, n_fft, hop,
-                 plan["tile"], plan["threads"], GL_BARRIERS[plan["barrier"]], radices,
-                 len(plan["radices"]), int(n_iter), mom, stream), "evc_gl_fused", lib)
+                 consts.data_ptr(), inv_w.data_ptr(), F, n_fft, hop, plan["tile"],
+                 plan["threads"], radices, len(plan["radices"]), int(n_iter), mom, stream),
+              "evc_gl_fused", lib)
     gl_angles_fused.launches += 1
     return out
 

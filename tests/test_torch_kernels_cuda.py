@@ -18,7 +18,9 @@ twice the float32 twin's own (+ 1e-7), and kernel and twin agree within
 at small shapes: at F = 688 the float32 twin is itself up to 8.5e-4 from
 float64 after 6 iterations (a bin whose t = rebuilt − μ/(1+μ)·prev nearly
 cancels turns rounding into phase), and such a worst bin is a tail
-statistic that differs between two roundings by a factor of ~3."""
+statistic that differs between two roundings by a factor of ~3. The
+production ``griffin_lim`` replays CUDA graphs on the card and must equal
+its eager loop bit for bit (the same kernels in the same order)."""
 
 import numpy as np
 import pytest
@@ -334,10 +336,10 @@ def test_gl_fused_matches_twin(cuda, F, n_fft, hop):
     assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) <= 1e-4
     if F < 50:
         assert float((got - ref).abs().max()) <= 1e-4
-    # another tile (fewer CTAs) and the grid-sync barrier compute the same bits
+    # other tiles (fewer CTAs, more frames each) compute the same bits
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = griffin_lim_cuda.gl_fused_plan(F, n_fft, hop, n_sms)
-    for other in (dict(plan, tile=plan["tile"] + 2), dict(plan, barrier="grid")):
+    for other in (dict(plan, tile=plan["tile"] + 1), dict(plan, tile=plan["tile"] + 2)):
         got2 = griffin_lim_cuda.gl_angles_fused(mag, ang, n_fft, hop, 6, 0.9, _plan=other)
         assert torch.equal(got2, got), other
 

@@ -10,13 +10,12 @@ whose ``exemplars_vc_tpu_torch/csrc/griffin_lim_fused.cu`` is the
 table-product design (its C entry takes the re/im planes, the DFT bases and
 a grid override); it is built with the same nvcc flags into
 ``build/kernels_base/``. At the main path's shape (688 frames × 201 bins,
-n_fft 400, hop 80) both designs, the current one with each barrier, the
-plain twin and the graphed cuFFT yardstick (``chip_smoke.gl_yardstick``)
-run on the same seeded inputs: after 6 iterations each must be within 1e-4
-relative L2 of the twin; then 300 iterations are timed with CUDA events
-(median of 5, the twin of 3) in turns: earlier design, current
-(neighbour), current (grid), yardstick, and back. Prints one JSON object;
-``--out`` writes it to a file too.
+n_fft 400, hop 80) both designs, the plain twin and the graphed cuFFT
+yardstick (``chip_smoke.gl_yardstick``) run on the same seeded inputs:
+after 6 iterations each must be within 1e-4 relative L2 of the twin; then
+300 iterations are timed with CUDA events (median of 5, the twin of 3) in
+turns: earlier design, current, yardstick, and back. Prints one JSON
+object; ``--out`` writes it to a file too.
 """
 
 from __future__ import annotations
@@ -109,25 +108,22 @@ def main() -> None:
     plan = glc.gl_fused_plan(F, n_fft, hop, torch.cuda.get_device_properties(dev)
                              .multi_processor_count)
 
-    def current(barrier, n):
-        return glc.gl_angles_fused(mag, ang, n_fft, hop, n, mu, _plan=dict(plan,
-                                                                            barrier=barrier))
+    def current(n):
+        return glc.gl_angles_fused(mag, ang, n_fft, hop, n, mu)
 
     twin6 = glc.gl_angles_fused_plain(mag, ang, n_fft, hop, 6, mu)
     replay6, yard6 = gl_yardstick(torch, mag, ang, n_fft, hop, 6, mu)
     replay6()
-    six = {"base": base_angles(lib, mag, ang, n_fft, hop, 6, mu),
-           "neighbour": current("neighbour", 6), "grid": current("grid", 6), "yardstick": yard6}
+    six = {"base": base_angles(lib, mag, ang, n_fft, hop, 6, mu), "current": current(6),
+           "yardstick": yard6}
     torch.cuda.synchronize()
     rel = {k: float(torch.linalg.norm(v - twin6) / torch.linalg.norm(twin6))
            for k, v in six.items()}
     replay, _ = gl_yardstick(torch, mag, ang, n_fft, hop, n_it, mu)
     runs = {"base": lambda: base_angles(lib, mag, ang, n_fft, hop, n_it, mu),
-            "neighbour": lambda: current("neighbour", n_it),
-            "grid": lambda: current("grid", n_it), "yardstick": replay}
+            "current": lambda: current(n_it), "yardstick": replay}
     times = {k: [] for k in runs}
-    for k in ("base", "neighbour", "grid", "yardstick", "yardstick", "grid", "neighbour",
-              "base"):
+    for k in ("base", "current", "yardstick", "yardstick", "current", "base"):
         times[k].append(event_ms(runs[k], 5))
     rec = {"card": smi, "shape": f"{F}x{n_fft // 2 + 1}, n_fft {n_fft}, hop {hop}",
            "plan": {k: v for k, v in plan.items() if k != "radices"},

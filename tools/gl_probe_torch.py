@@ -8,10 +8,12 @@ one GPU.
 Each variant is the current source with a textual patch (below), built with
 the same nvcc flags into ``build/kernels_probe/`` (all builds at once) and
 run through ``gl_angles_fused`` at the main path's shape (688 × 201, n_fft
-400, hop 80, 300 iterations, each barrier) with CUDA events, median of 5,
-in turns (full, variants..., full). The variants compute wrong angles; only
+400, hop 80, 300 iterations) with CUDA events, median of 5, in turns
+(full, variants..., full). The variants compute wrong angles; only
 their times mean something: the full kernel's time less a variant's is what
-the part taken out costs on the critical path. Prints one JSON object.
+the part taken out costs on the critical path. Then the full kernel under
+other plans (tile, threads), the same way: tiles of fewer frames at 256
+threads put two CTAs on an SM. Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -41,8 +43,7 @@ FFT_CALLS = [("gl_fft(in, other, sc, s.tw, nt, m)", "in")]
 VARIANTS = {
     "full": [],
     "no_fft": FFT_CALLS,
-    "no_barrier": [("          while (gl_acquire(flags + c) < it + 1) {\n          }", "          ;"),
-                   ("      cg::this_grid().sync();", "      __syncthreads();")],
+    "no_barrier": [("    cg::this_grid().sync();", "    __syncthreads();")],
     "no_frame_store": [("        o[0] = s.ws[2 * j] * w.x;\n        o[1] = s.ws[2 * j + 1] * -w.y;",
                         "")],
     "no_ola_loads": [("        v[q] = lo + q <= hi ? __ldcg(src + (size_t)q * (n - hop)) : 0.0;",
@@ -104,17 +105,20 @@ def main() -> None:
         np.complex64), device=dev)
     plan = glc.gl_fused_plan(F, n_fft, hop, torch.cuda.get_device_properties(dev)
                              .multi_processor_count)
-    times = {(v, b): [] for v in VARIANTS for b in glc.GL_BARRIERS}
-    order = list(VARIANTS) + ["full"]
-    for v in order:
+    times = {v: [] for v in VARIANTS}
+    for v in list(VARIANTS) + ["full"]:
         glc._lib = lambda lib=libs[v]: lib
-        for b in glc.GL_BARRIERS:
-            p = dict(plan, barrier=b)
-            times[(v, b)].append(event_ms(lambda: glc.gl_angles_fused(mag, ang, n_fft, hop, n_it,
-                                                                      0.9, _plan=p)))
+        times[v].append(event_ms(lambda: glc.gl_angles_fused(mag, ang, n_fft, hop, n_it, 0.9)))
     rec = {"card": smi, "shape": f"{F}x{n_fft // 2 + 1}, n_fft {n_fft}, hop {hop}",
            "iterations": n_it, "plan": {k: v for k, v in plan.items() if k != "radices"},
-           "ms": {f"{v}/{b}": [round(t, 6) for t in ts] for (v, b), ts in times.items()}}
+           "ms": {v: [round(t, 6) for t in ts] for v, ts in times.items()}}
+    glc._lib = lambda lib=libs["full"]: lib
+    rec["plans"] = {}
+    for tile, threads in ((plan["tile"], plan["threads"]), (plan["tile"], 256), (3, 256),
+                          (4, 256), (plan["tile"], plan["threads"])):
+        p = dict(plan, tile=tile, threads=threads)
+        rec["plans"].setdefault(f"tile {tile}, {threads} threads", []).append(round(event_ms(
+            lambda: glc.gl_angles_fused(mag, ang, n_fft, hop, n_it, 0.9, _plan=p)), 6))
     print(json.dumps(rec), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
