@@ -45,17 +45,22 @@ def band_mask(ta: int, tb: int, la: torch.Tensor, lb: torch.Tensor,
 
 
 def dtw_batch(feats_a: torch.Tensor, feats_b: torch.Tensor,
-              lens_a: torch.Tensor, lens_b: torch.Tensor,
-              band: int | None = None) -> DtwResult:
-    """Batched alignment: (N, Ta, D) vs (N, Tb, D) with true lengths (N,)."""
+              lens_a, lens_b, band: int | None = None) -> DtwResult:
+    """Batched alignment: (N, Ta, D) vs (N, Tb, D) with true lengths (N,).
+
+    The lengths are tensors or host arrays. They are range-checked once, on
+    the host: host arrays (or CPU tensors) as they are, device tensors after
+    one copy back, which waits for the device; both kernels then take that
+    host copy."""
     ta, tb = feats_a.shape[1], feats_b.shape[1]
     C = pairwise_sqdist(feats_a.float(), feats_b.float())
-    lens = torch.stack([lens_a.to(torch.int32), lens_b.to(torch.int32)], dim=1)
-    lens = lens.to(C.device).contiguous()
+    lens_host = torch.stack([torch.as_tensor(lens_a).to(torch.int32).cpu(),
+                             torch.as_tensor(lens_b).to(torch.int32).cpu()], dim=1)
+    lens = lens_host.to(C.device).contiguous()
     if band is not None:
         C = torch.where(band_mask(ta, tb, lens[:, 0], lens[:, 1], band), C, BIG)
-    raw, dirs = dtw_wavefront(C.contiguous(), lens)
-    path_i, path_j, path_len = dtw_backtrace(dirs, lens)
+    raw, dirs = dtw_wavefront(C.contiguous(), lens, lens_host)
+    path_i, path_j, path_len = dtw_backtrace(dirs, lens, lens_host)
     dist = raw / (lens[:, 0] + lens[:, 1]).float()
     return DtwResult(dist, raw, path_i, path_j, path_len)
 
@@ -64,8 +69,7 @@ def dtw(feat_a: torch.Tensor, feat_b: torch.Tensor,
         len_a: int | None = None, len_b: int | None = None,
         band: int | None = None) -> DtwResult:
     """Align one pair (Ta, D) vs (Tb, D); lengths default to the full rows."""
-    dev = feat_a.device
-    la = torch.tensor([feat_a.shape[0] if len_a is None else int(len_a)], device=dev)
-    lb = torch.tensor([feat_b.shape[0] if len_b is None else int(len_b)], device=dev)
+    la = torch.tensor([feat_a.shape[0] if len_a is None else int(len_a)])
+    lb = torch.tensor([feat_b.shape[0] if len_b is None else int(len_b)])
     r = dtw_batch(feat_a[None], feat_b[None], la, lb, band=band)
     return DtwResult(*(x[0] for x in r))

@@ -68,13 +68,21 @@ def dtw_wavefront_plan(n: int, ta: int, n_sms: int) -> dict:
                 cluster=ctas, threads=32 * wpc, grid=(n * ctas, 1, 1))
 
 
-def _check_lens(lens: torch.Tensor, n: int, ta: int, tb: int, device) -> None:
+def _check_lens(lens: torch.Tensor, n: int, ta: int, tb: int, device,
+                lens_host=None) -> None:
+    """Refuse lengths the kernels would read or write out of bounds with.
+
+    The range check needs the values on the host. ``lens_host`` is the
+    caller's host copy of the same (n, 2) values (an array or a CPU tensor);
+    without it the check copies ``lens`` back, which waits for the device."""
     if lens.dtype != torch.int32 or lens.shape != (n, 2) or not lens.is_contiguous():
         raise ValueError(f"lens must be contiguous int32 ({n}, 2), got "
                          f"{lens.dtype} {tuple(lens.shape)}")
     if lens.device != device:
         raise ValueError(f"lens on {lens.device}, costs on {device}")
-    host = lens.cpu()
+    host = lens.cpu() if lens_host is None else torch.as_tensor(lens_host).cpu()
+    if tuple(host.shape) != (n, 2):
+        raise ValueError(f"lens_host must be ({n}, 2), got {tuple(host.shape)}")
     if (host < 1).any() or (host[:, 0] > ta).any() or (host[:, 1] > tb).any():
         raise ValueError(f"lens out of range 1..({ta}, {tb}): {host.tolist()}")
 
@@ -121,8 +129,10 @@ def dtw_wavefront_plain(C: torch.Tensor, lens: torch.Tensor):
     return final, dirs
 
 
-def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor):
+def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor, lens_host=None):
     """Batched wavefront DP; same contract as :func:`dtw_wavefront_plain`.
+    ``lens_host``: the caller's host copy of ``lens`` for the range check
+    (:func:`_check_lens`), which spares the launch a device sync.
 
     On a CUDA tensor this launches ``evc_dtw_wavefront`` with the
     :func:`dtw_wavefront_plan` of this card and counts the launch in
@@ -140,7 +150,7 @@ def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor):
         raise ValueError(f"dtw_wavefront: Ta={ta} is more than {MAX_TA} frames, the reach of "
                          f"the widest plan (8 CTAs x 16 warps x 32 lanes x 8 rows); longer "
                          f"sources wait for the long DTW (ROADMAP queue 1 item 12)")
-    _check_lens(lens, n, ta, tb, C.device)
+    _check_lens(lens, n, ta, tb, C.device, lens_host)
     plan = dtw_wavefront_plan(n, ta, torch.cuda.get_device_properties(C.device)
                               .multi_processor_count)
     lib = load_library("dtw_wavefront")
@@ -203,11 +213,11 @@ def dtw_backtrace_plain(dirs: torch.Tensor, lens: torch.Tensor):
     return path_i, path_j, path_len.to(torch.int32)
 
 
-def dtw_backtrace(dirs: torch.Tensor, lens: torch.Tensor):
+def dtw_backtrace(dirs: torch.Tensor, lens: torch.Tensor, lens_host=None):
     """Backtrace; same contract as :func:`dtw_backtrace_plain`. On a CUDA
     tensor this launches ``evc_dtw_backtrace`` (one CTA a pair, the codes
     staged in shared-memory windows, one walk) and counts the launch in
-    ``dtw_backtrace.launches``."""
+    ``dtw_backtrace.launches``. ``lens_host`` as in :func:`dtw_wavefront`."""
     if dirs.device.type == "cpu":
         return dtw_backtrace_plain(dirs, lens)
     if dirs.device.type != "cuda":
@@ -217,7 +227,7 @@ def dtw_backtrace(dirs: torch.Tensor, lens: torch.Tensor):
                          f"{dirs.dtype} {tuple(dirs.shape)}")
     n, max_path, ta = dirs.shape
     tb = max_path - ta + 1
-    _check_lens(lens, n, ta, tb, dirs.device)
+    _check_lens(lens, n, ta, tb, dirs.device, lens_host)
     lib = load_library("dtw_wavefront")
     fn = lib.evc_dtw_backtrace
     fn.restype = ctypes.c_int

@@ -33,3 +33,28 @@ def build_exemplar_dicts_padded(feats_a: torch.Tensor, feats_b: torch.Tensor,
         order = torch.argsort(torch.where(valid.reshape(-1), 0, 1), stable=True)[:k_pad]
         A, B = A[order], B[order]
     return A, B
+
+
+def alignment_keep_mask(feats_a: torch.Tensor, feats_b: torch.Tensor, path_i: torch.Tensor,
+                        path_j: torch.Tensor, k_pad: int, k_true: int,
+                        prune_frac: float) -> torch.Tensor:
+    """(k_pad,) bool mask that keeps the best-aligned (1 − prune_frac) of the
+    ``k_true`` exemplar pairs (``data.dict_prune_frac``).
+
+    A pair's rank is its alignment cost ‖feat_a[path_i] − feat_b[path_j]‖²
+    over the alignment features, the cost the DTW minimised; the rows are
+    packed as :func:`build_exemplar_dicts_padded` packs them, so the mask
+    applies row-wise to every gathered dictionary. The threshold is the
+    sorted cost at index min(max(int((1 − prune_frac)·k_true), 1), k_pad − 1),
+    with the padding rows sorted last at +inf."""
+    Am, Bm = build_exemplar_dicts_padded(feats_a, feats_b, path_i, path_j, k_pad=k_pad)
+    cost = torch.sum((Am - Bm) ** 2, dim=1)
+    valid = torch.arange(cost.shape[0], device=cost.device) < k_true
+    ranked = torch.sort(torch.where(valid, cost, torch.inf)).values
+    idx = min(max(int((1.0 - prune_frac) * k_true), 1), k_pad - 1)
+    return valid & (cost <= ranked[idx])
+
+
+def apply_keep_mask(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Zero the rows of (K, D) ``M`` where ``keep`` is False."""
+    return M * keep[:, None].to(M.dtype)

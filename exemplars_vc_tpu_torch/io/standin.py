@@ -24,8 +24,9 @@ import os
 import shutil
 from pathlib import Path
 
+from exemplars_vc_tpu_torch.pipelines.evaluate import HELD_OUT_UTT
+
 AUDIO_DIR = Path(__file__).resolve().parents[2] / "artifacts" / "audio"
-HELD_OUT_UTT = "100162"
 
 
 def build_standin_corpus(root: str, n_pairs: int = 8) -> tuple[str, str, str]:

@@ -2,37 +2,49 @@
 ``exemplars_vc_tpu/pipelines/convert.py``).
 
 1. build the exemplar dictionaries A (source) / B (target) along the DTW
-   paths (:func:`_aligned_dicts`),
-2. solve the fixed-dictionary MU NMF of the input's |STFT| over A,
+   paths (:func:`_aligned_dicts`: hop divisor, alignment pruning, VTLP
+   augmentation; memoised in the process),
+2. solve the activations of the input's |STFT| over A
+   (:func:`_solve_activations`: mel domain, context stacking, unit-norm
+   atoms, the configured solver, top-k refinement, sharpening, the temporal
+   box filter),
 3. convert Y = H·B,
 4. resynthesize with Griffin-Lim seeded with the input's own phase,
 5. optionally score the DTW-aligned MCD against a reference utterance.
 
-Only the default configuration's levers are ported; any other raises
-``NotImplementedError`` naming its ROADMAP item. The entry points run on the
-card (``device="cuda"``) unless the caller passes ``device="cpu"``; without a
-card the default raises.
+Every lever of the STFT path runs. The WORLD path and the sharded solver
+raise ``NotImplementedError`` naming their ROADMAP item. The entry points run
+on the card (``device="cuda"``) unless the caller passes ``device="cpu"``;
+without a card the default raises.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
-from exemplars_vc_tpu_torch.align.exemplar import build_exemplar_dicts_padded
+from exemplars_vc_tpu_torch.align.exemplar import (
+    alignment_keep_mask,
+    apply_keep_mask,
+    build_exemplar_dicts_padded,
+)
 from exemplars_vc_tpu_torch.config import Config
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
 from exemplars_vc_tpu_torch.dsp.mcep import mcep
+from exemplars_vc_tpu_torch.dsp.mel import mel_filterbank
 from exemplars_vc_tpu_torch.factorize.nmf import (
     NmfState,
     convert_features,
     nmf_activations,
+    prune_topk_refine,
     residual_compensation,
+    sharpen_activations,
 )
+from exemplars_vc_tpu_torch.factorize.qrmf import nnls_activations, qr_activations
 from exemplars_vc_tpu_torch.io.store import ArtifactStore
 from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
 from exemplars_vc_tpu_torch.obs.metrics import mcd_aligned
@@ -59,23 +71,10 @@ class ConversionResult:
 
 
 def _check_slice(cfg: Config) -> None:
-    """Raise for every lever this slice does not port."""
-    d, n = cfg.data, cfg.nmf
+    """Raise for the levers that are not ported."""
     unported = [
-        (not d.use_stft, "data.use_stft=False (WORLD path)", 10),
-        (d.dict_hop_divisor > 1, "data.dict_hop_divisor>1", 8),
-        (bool(d.dict_augment_warps), "data.dict_augment_warps", 8),
-        (d.dict_prune_frac > 0, "data.dict_prune_frac", 8),
-        (n.solve_domain != "linear", "nmf.solve_domain", 8),
-        (n.context_frames > 0, "nmf.context_frames", 8),
-        (n.normalize_exemplars, "nmf.normalize_exemplars", 8),
-        (n.prune_topk > 0, "nmf.prune_topk", 8),
-        (n.activation_power != 1.0, "nmf.activation_power", 8),
-        (n.h_smooth > 0, "nmf.h_smooth", 8),
-        (n.solver == "mu_sharded", "nmf.solver='mu_sharded'", 12),
-        (n.solver not in ("auto", "mu", "mu_pallas", "mu_sharded"),
-         f"nmf.solver={n.solver!r}", 8),
-        (n.work_dtype != "float32", "nmf.work_dtype", 9),
+        (not cfg.data.use_stft, "data.use_stft=False (WORLD path)", 10),
+        (cfg.nmf.solver == "mu_sharded", "nmf.solver='mu_sharded'", 12),
     ]
     for bad, what, item in unported:
         if bad:
@@ -93,30 +92,231 @@ def mcd_between_signals(a: np.ndarray, b: np.ndarray, cfg: Config,
     return float(mcd_aligned(ca, cb))
 
 
+def _stack_context(M: torch.Tensor, c: int) -> torch.Tensor:
+    """(N, D) → (N, D·(2c+1)): the edge-clamped ±c neighbour rows side by
+    side, row n = [M[n−c]; …; M[n]; …; M[n+c]] (multi-frame exemplars)."""
+    if c <= 0:
+        return M
+    N = M.shape[0]
+    base = torch.arange(N, device=M.device)
+    return torch.cat([M[(base + s).clamp(0, N - 1)] for s in range(-c, c + 1)], dim=1)
+
+
+def _solve_mel_matrix(d_feat: int, cfg: Config, device: torch.device) -> torch.Tensor:
+    """Mel filterbank of the activation solve; the STFT grid follows from
+    the bin count (the conversion H·B stays at full resolution)."""
+    return torch.as_tensor(mel_filterbank(cfg.data.sr, 2 * (d_feat - 1),
+                                          n_mels=cfg.nmf.solve_mels), device=device)
+
+
+def _preprocess_frames(X: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """What :func:`_solve_activations` does to the input's frames before the
+    solve: the mel projection (``nmf.solve_domain='mel'``), then context
+    stacking (``nmf.context_frames``). ``serve.convert_batch`` runs it per
+    utterance before it stacks the frames, so the stacked solve mixes
+    nothing across an utterance boundary."""
+    if cfg.nmf.solve_domain == "mel" and X.shape[1] > cfg.nmf.solve_mels:
+        X = X @ _solve_mel_matrix(X.shape[1], cfg, X.device).T
+    return _stack_context(X, cfg.nmf.context_frames)
+
+
+def _smooth_h(H: torch.Tensor, s: int) -> torch.Tensor:
+    """Edge-clamped box filter of width 2s + 1 along time (``nmf.h_smooth``)."""
+    if s <= 0:
+        return H
+    F = H.shape[0]
+    base = torch.arange(F, device=H.device)
+    return sum(H[(base + d).clamp(0, F - 1)] for d in range(-s, s + 1)) / (2 * s + 1)
+
+
+def _solve_activations(X: torch.Tensor, A: torch.Tensor, cfg: Config,
+                       x_preprocessed: bool = False) -> NmfState:
+    """The activation solve with every lever of ``cfg.nmf``.
+
+    ``nmf.solve_domain='mel'`` and ``nmf.context_frames`` change X and A
+    before the solve; H keeps its (frames, K) shape, so Y = H·B is untouched.
+    ``x_preprocessed=True``: the caller already ran
+    :func:`_preprocess_frames` on X; A still gets both steps here, gated on
+    its own width. ``nmf.normalize_exemplars`` solves on unit-L2 atoms and
+    returns H in the unnormalised basis. After the solve:
+    ``nmf.prune_topk``, ``nmf.activation_power``, ``nmf.h_smooth``."""
+    n = cfg.nmf
+    c = n.context_frames
+    if n.solve_domain == "mel" and A.shape[1] > n.solve_mels:
+        M = _solve_mel_matrix(A.shape[1], cfg, A.device)
+        if not x_preprocessed:
+            X = X @ M.T
+        A = A @ M.T
+    if c > 0:
+        if not x_preprocessed:
+            X = _stack_context(X, c)
+        A = _stack_context(A, c)
+    if n.normalize_exemplars:
+        # X ≈ H'·(A/s) = (H'/s)·A. A zero padding row stays zero in A/s, its
+        # numerator column is 0, and its H column is 0 after the first step
+        s = torch.clamp(torch.sqrt(torch.sum(A * A, dim=1)), min=1e-12)
+        st = _dispatch_solver(X, A / s[:, None], cfg)
+        st = NmfState(st.H / s[None, :], st.n_iter, st.error)
+    else:
+        st = _dispatch_solver(X, A, cfg)
+    if n.prune_topk > 0:
+        beta = n.beta_loss if n.solver in ("auto", "mu", "mu_pallas") else "frobenius"
+        st = prune_topk_refine(X, A, st.H, k=n.prune_topk, beta_loss=beta,
+                               n_iter=n.prune_iters)
+    if n.activation_power != 1.0:
+        # the error stays the solver's: the refit gain keeps the fit comparable
+        st = NmfState(sharpen_activations(st.H, A, X, n.activation_power), st.n_iter, st.error)
+    if n.h_smooth > 0:
+        st = NmfState(_smooth_h(st.H, n.h_smooth), st.n_iter, st.error)
+    return st
+
+
+def _dispatch_solver(X: torch.Tensor, A: torch.Tensor, cfg: Config) -> NmfState:
+    """``nmf.solver``: ``auto``/``mu`` the sklearn-parity MU (on the card the
+    float32 Frobenius update runs the recon/update kernels; ``work_dtype``
+    other than float32 is the plain-torch bfloat16 solve); ``mu_pallas`` the
+    same MU as the reference's Pallas solver runs it, which takes neither
+    ``beta_loss`` nor ``sparsity_l1``: Frobenius without l1; ``cd``/``nnls``
+    FISTA NNLS; ``qr``/``qrmf`` the unconstrained solve clamped at 0."""
+    n = cfg.nmf
+    solver = "mu" if n.solver == "auto" else n.solver
+    if solver == "mu":
+        work = None if n.work_dtype == "float32" else getattr(torch, n.work_dtype)
+        return nmf_activations(X, A, beta_loss=n.beta_loss, tol=n.tol, max_iter=n.max_iter,
+                               l1=n.sparsity_l1, work_dtype=work)
+    if solver == "mu_pallas":
+        return nmf_activations(X, A, tol=n.tol, max_iter=n.max_iter)
+    if solver in ("cd", "nnls"):
+        # a sklearn cd "iteration" is a sweep over all K coordinates; its
+        # objective takes ~10× as many FISTA steps
+        n_iter = n.nnls_iters or 10 * max(n.max_iter, 20)
+        H = nnls_activations(X, A, n_iter=n_iter)
+        return NmfState(H, n_iter, torch.linalg.norm(X - H @ A))
+    if solver in ("qr", "qrmf"):
+        H = torch.clamp(qr_activations(X, A), min=0.0)
+        return NmfState(H, 1, torch.linalg.norm(X - H @ A))
+    raise ValueError(f"unknown nmf solver {solver!r}")
+
+
+def _vtlp_matrix(D: int, alpha: float, dtype: torch.dtype, device: torch.device):
+    """Source bins lo, hi and weight w of the linear warp f → α·f on D bins
+    (edges clamped), and the (D, D) interpolation operator P with
+    M·P = warp_α(M); lo and hi coincide at the clamped top edge, where their
+    weights add."""
+    cols = torch.arange(D, device=device)
+    src = torch.clamp(cols.to(torch.float32) / alpha, 0.0, D - 1.0)
+    lo = torch.floor(src).long()
+    hi = torch.clamp(lo + 1, max=D - 1)
+    w = (src - lo).to(dtype)
+    P = torch.zeros((D, D), dtype=dtype, device=device)
+    P.index_put_((lo, cols), 1.0 - w, accumulate=True)
+    P.index_put_((hi, cols), w, accumulate=True)
+    return lo, hi, w, P
+
+
+def _vtlp_warp(M: torch.Tensor, alpha: float) -> torch.Tensor:
+    """VTLP warp of magnitude rows (N, D): bin content moves from f to α·f
+    by linear interpolation (α < 1 a longer vocal tract, α > 1 a shorter)."""
+    lo, hi, w, _ = _vtlp_matrix(M.shape[1], alpha, M.dtype, M.device)
+    return M[:, lo] * (1.0 - w) + M[:, hi] * w
+
+
+def _vtlp_expand_pair(A: torch.Tensor, B: torch.Tensor, warps: tuple[float, ...]):
+    """[A; warp_α1(A); …] and the same for B: each warp is a (D, D) operator,
+    so the expansion is one batched product over the stacked pair."""
+    K, D = A.shape
+    mats = [torch.eye(D, dtype=A.dtype, device=A.device)]
+    mats += [_vtlp_matrix(D, a, A.dtype, A.device)[3] for a in warps]
+    out = torch.einsum("skd,wde->swke", torch.stack([A, B]), torch.stack(mats))
+    return out[0].reshape((1 + len(warps)) * K, D), out[1].reshape((1 + len(warps)) * K, D)
+
+
+def _tile_pair(A: torch.Tensor, B: torch.Tensor, n: int):
+    return torch.cat([A] * n), torch.cat([B] * n)
+
+
+def _augment_dicts(dicts: dict, warps: tuple[float, ...]) -> dict:
+    """Append frequency-warped copies of every spectral exemplar pair, source
+    and target warped by the same α. f0 rows (and any feature narrower than
+    8 bins) are tiled unwarped, so every feature keeps the same row count."""
+    out = {}
+    for name, (A, B) in dicts.items():
+        if name == "f0" or A.shape[1] < 8:
+            out[name] = _tile_pair(A, B, 1 + len(warps))
+        else:
+            out[name] = _vtlp_expand_pair(A, B, warps)
+    return out
+
+
+def _parse_warps(spec: str) -> tuple[float, ...]:
+    if not spec:
+        return ()
+    return tuple(float(w) for w in spec.split(",") if w.strip())
+
+
+# Prepared dictionaries of this process, on their device: repeated
+# conversions would otherwise load the stored paths, recompute both |STFT|
+# batches and gather the same matrices on every call. Keyed by everything
+# that determines the dictionaries, and the device; bounded, first in first
+# out.
+_DICTS_MEMO: dict = {}
+_DICTS_MEMO_MAX = 8
+
+
 def _aligned_dicts(cfg: Config, store: ArtifactStore, data_path: str,
                    nb_file: int | None, device: torch.device):
     """Exemplar dictionaries {name: (A, B)} gathered along the DTW paths, K
-    padded with zero rows to a multiple of 512."""
-    art = make_dictionary(cfg, store, data_path, nb_file=nb_file, device=device)
+    padded with zero rows to a multiple of 512, and the feature kind.
+
+    ``data.dict_hop_divisor > 1`` builds only the dictionary side (alignment
+    and features) at hop ÷ divisor; ``data.dict_prune_frac`` zeroes the
+    worst-aligned pairs; ``data.dict_augment_warps`` appends VTLP-warped
+    copies. A repeated call with the same arguments returns the memoised
+    tensors; ``_aligned_dicts.builds`` counts the calls that built."""
+    # cfg.misc is part of the key: with nb_file=None the file count comes
+    # from cfg.misc.nb_file, and misc.cpu_rate changes the loaded audio
+    device = torch.device(device)
+    memo_key = (store.root, data_path, nb_file, repr(cfg.data), repr(cfg.mcep),
+                repr(cfg.world), repr(cfg.misc), str(device))
+    hit = _DICTS_MEMO.get(memo_key)
+    if hit is not None:
+        return hit
+
+    div = cfg.data.dict_hop_divisor
+    dcfg = cfg
+    if div > 1:
+        dcfg = replace(cfg,
+                       mcep=replace(cfg.mcep, hop_length=max(cfg.mcep.hop_length // div, 1)),
+                       world=replace(cfg.world,
+                                     frame_period_ms=cfg.world.frame_period_ms / div))
+    art = make_dictionary(dcfg, store, data_path, nb_file=nb_file, device=device)
     src_feats, tar_feats = build_conversion_dicts_pair(
-        cfg, store, data_path, cfg.data.src, cfg.data.tar, nb_file=nb_file, device=device)
-    k_true = int(art.path_len.sum())
+        dcfg, store, data_path, cfg.data.src, cfg.data.tar, nb_file=nb_file, device=device)
+    k_true = int(art.path_len.sum())        # on the host already
     k_pad = ((k_true + 511) // 512) * 512
-    dicts = {name: build_exemplar_dicts_padded(src_feats.feats[name], tar_feats.feats[name],
-                                               art.path_i, art.path_j, k_pad=k_pad)
-             for name in src_feats.feats}
+    keep = None
+    if cfg.data.dict_prune_frac > 0:
+        keep = alignment_keep_mask(art.feat_a, art.feat_b, art.path_i, art.path_j,
+                                   k_pad=k_pad, k_true=k_true,
+                                   prune_frac=float(cfg.data.dict_prune_frac))
+    dicts = {}
+    for name in src_feats.feats:
+        A, B = build_exemplar_dicts_padded(src_feats.feats[name], tar_feats.feats[name],
+                                           art.path_i, art.path_j, k_pad=k_pad)
+        if keep is not None:
+            A, B = apply_keep_mask(A, keep), apply_keep_mask(B, keep)
+        dicts[name] = (A, B)
+    warps = _parse_warps(cfg.data.dict_augment_warps)
+    if warps:
+        dicts = _augment_dicts(dicts, warps)
+    if len(_DICTS_MEMO) >= _DICTS_MEMO_MAX:
+        _DICTS_MEMO.pop(next(iter(_DICTS_MEMO)))
+    _DICTS_MEMO[memo_key] = (dicts, src_feats.kind)
+    _aligned_dicts.builds += 1
     return dicts, src_feats.kind
 
 
-def _solve_activations(X: torch.Tensor, A: torch.Tensor, cfg: Config) -> NmfState:
-    """The default solver: sklearn-parity MU (``auto`` and ``mu``); on the
-    card the Frobenius update runs the recon/update kernels. ``mu_pallas``
-    runs the same MU, as the reference's Pallas solver does, which takes
-    neither ``beta_loss`` nor ``sparsity_l1``: Frobenius without l1."""
-    n = cfg.nmf
-    pallas = n.solver == "mu_pallas"
-    return nmf_activations(X, A, beta_loss="frobenius" if pallas else n.beta_loss, tol=n.tol,
-                           max_iter=n.max_iter, l1=0.0 if pallas else n.sparsity_l1)
+_aligned_dicts.builds = 0
 
 
 def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_path: str,

@@ -25,23 +25,67 @@ from exemplars_vc_tpu_torch.io.store import ArtifactStore, load_speaker
 log = logging.getLogger("exemplars_vc_tpu_torch")
 
 
+_HOST_FIELDS = ("path_len", "distance")   # the per-pair scalars
+
+
 @dataclass
 class DictionaryArtifacts:
-    """The exemplar-dictionary state, as tensors on one device."""
+    """The exemplar-dictionary state: the paths and features as tensors on
+    one device, the per-pair scalars on the host (the one read-back the
+    critical path needs: ``path_len`` sizes the exemplar bucket)."""
 
     path_i: torch.Tensor     # (N, P) int32 source-frame indices per pair, −1 padded
     path_j: torch.Tensor     # (N, P) int32 target-frame indices
-    path_len: torch.Tensor   # (N,) int32
+    path_len: torch.Tensor   # (N,) int32, on the CPU
     feat_a: torch.Tensor     # (N, T, D) float32 padded alignment features, source
     feat_b: torch.Tensor
     len_a: torch.Tensor      # (N,) int32
     len_b: torch.Tensor
-    distance: torch.Tensor   # (N,) float32 normalized DTW distances
+    distance: torch.Tensor   # (N,) float32 normalized DTW distances, on the CPU
 
     def to_numpy(self) -> dict[str, np.ndarray]:
-        """CPU arrays for ``ArtifactStore.save`` (its writer thread runs
-        ``np.asarray``, which a CUDA tensor does not take)."""
+        """CPU arrays, copied now (a CUDA tensor waits for the device)."""
         return {k: v.detach().cpu().numpy() for k, v in self.__dict__.items()}
+
+    def host_copies(self) -> dict:
+        """What ``ArtifactStore.save`` takes (its writer thread runs
+        ``np.asarray``, which a CUDA tensor does not take), without waiting
+        for the device: each CUDA tensor is copied into pinned host memory on
+        a side stream, and the returned handle waits for that copy only when
+        the writer asks for the array."""
+        cuda = [v for v in self.__dict__.values() if v.is_cuda]
+        if not cuda:
+            return self.to_numpy()
+        device = cuda[0].device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        out = {}
+        with torch.cuda.stream(side):
+            for k, v in self.__dict__.items():
+                if not v.is_cuda:
+                    out[k] = v.detach().numpy()
+                    continue
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host.copy_(v.detach(), non_blocking=True)
+                v.record_stream(side)
+                out[k] = host
+            done = torch.cuda.Event()
+            done.record(side)
+        return {k: _HostCopy(v, done) if isinstance(v, torch.Tensor) else v
+                for k, v in out.items()}
+
+
+class _HostCopy:
+    """A pinned host tensor whose copy from the device may still be in
+    flight; ``np.asarray`` of it waits for the copy's event."""
+
+    def __init__(self, host: torch.Tensor, done: "torch.cuda.Event"):
+        self.host, self.done = host, done
+
+    def __array__(self, dtype=None, copy=None):
+        self.done.synchronize()
+        a = self.host.numpy()
+        return a if dtype is None else a.astype(dtype)
 
 
 def from_jax_artifacts(arrays: dict[str, np.ndarray],
@@ -52,7 +96,8 @@ def from_jax_artifacts(arrays: dict[str, np.ndarray],
     out = {}
     for name in DictionaryArtifacts.__dataclass_fields__:
         dtype = torch.int32 if name in ints else torch.float32
-        out[name] = torch.as_tensor(np.asarray(arrays[name]), device=device).to(dtype)
+        where = "cpu" if name in _HOST_FIELDS else device
+        out[name] = torch.as_tensor(np.asarray(arrays[name]), device=where).to(dtype)
     return DictionaryArtifacts(**out)
 
 
@@ -91,7 +136,8 @@ def pair_mfcc(cfg: Config, data_path: str, nb: int, device: torch.device):
     Both speakers' padded signal batches are padded to a common length and
     concatenated (as the JAX package does, so every frame sees the same
     zeros); each output is cut back to its own frame bucket and masked.
-    Returns (FA, la), (FB, lb) with la/lb = 1 + samples // hop."""
+    Returns (FA, la), (FB, lb) with la/lb = 1 + samples // hop as int32
+    host arrays."""
     m = cfg.mcep
     bucket = cfg.data.frame_bucket
     step = m.hop_length * bucket
@@ -106,11 +152,11 @@ def pair_mfcc(cfg: Config, data_path: str, nb: int, device: torch.device):
     x[n:, : B.shape[1]] = B[:n]
     out = mfcc(torch.as_tensor(x, device=device), sr=cfg.data.sr, n_fft=m.frame_length,
                hop_length=m.hop_length, n_mfcc=m.n_mfcc, n_mels=m.n_mels)
-    la_t = torch.as_tensor(la, device=device)
-    lb_t = torch.as_tensor(lb, device=device)
-    FA = trim_and_mask(out[:n], _round_up(int(la.max()), bucket), la_t)
-    FB = trim_and_mask(out[n:], _round_up(int(lb.max()), bucket), lb_t)
-    return (FA, la_t), (FB, lb_t)
+    FA = trim_and_mask(out[:n], _round_up(int(la.max()), bucket),
+                       torch.as_tensor(la, device=device))
+    FB = trim_and_mask(out[n:], _round_up(int(lb.max()), bucket),
+                       torch.as_tensor(lb, device=device))
+    return (FA, la), (FB, lb)
 
 
 def make_dictionary(cfg: Config, store: ArtifactStore, data_path: str,
@@ -128,10 +174,20 @@ def make_dictionary(cfg: Config, store: ArtifactStore, data_path: str,
         return from_jax_artifacts(store.load(key), device)
 
     (FA, la), (FB, lb) = pair_mfcc(cfg, data_path, nb, device)
+    # the lengths are host arrays, so the DTW wrappers check them there; only
+    # the per-pair scalars come back to the host here (path_len sizes the
+    # exemplar bucket). The paths and features stay on the device, and their
+    # host copy for the store is made off this thread's critical path
     r = dtw_batch(FA, FB, la, lb)
-    art = DictionaryArtifacts(path_i=r.path_i, path_j=r.path_j, path_len=r.path_len,
-                              feat_a=FA, feat_b=FB, len_a=la, len_b=lb,
-                              distance=r.distance)
-    store.save(key, **art.to_numpy())
+    art = DictionaryArtifacts(path_i=r.path_i, path_j=r.path_j, path_len=r.path_len.cpu(),
+                              feat_a=FA, feat_b=FB,
+                              len_a=torch.as_tensor(la, device=device),
+                              len_b=torch.as_tensor(lb, device=device),
+                              distance=r.distance.cpu())
+    store.save(key, **art.host_copies())
+    make_dictionary.builds += 1
     log.info("DTW %d pairs, %s frames", FA.shape[0], tuple(FA.shape[1:]))
     return art
+
+
+make_dictionary.builds = 0   # dictionaries built (store hits not counted)

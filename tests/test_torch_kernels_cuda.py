@@ -100,6 +100,42 @@ def test_dtw_kernels_long_pair(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("host_lens", [True, False], ids=["host-lens", "device-lens"])
+def test_dtw_batch_refuses_out_of_range_lengths(cuda, host_lens):
+    """The range check on the lengths holds on the card whether the caller
+    hands host arrays (checked without a device sync) or device tensors
+    (one copy back): a bad length raises before either kernel launches, and
+    good lengths give the twins' paths."""
+    from exemplars_vc_tpu_torch.align.dtw import dtw_batch
+
+    rng = np.random.default_rng(0)
+    fa = torch.as_tensor(rng.standard_normal((2, 40, 6)).astype(np.float32), device=cuda)
+    fb = torch.as_tensor(rng.standard_normal((2, 33, 6)).astype(np.float32), device=cuda)
+
+    def lens(a, b):
+        a, b = np.asarray(a, np.int32), np.asarray(b, np.int32)
+        return (a, b) if host_lens else (torch.as_tensor(a, device=cuda),
+                                         torch.as_tensor(b, device=cuda))
+
+    launches = (dtw_cuda.dtw_wavefront.launches, dtw_cuda.dtw_backtrace.launches)
+    for la, lb in (([41, 10], [33, 33]), ([40, 10], [33, 34]), ([0, 10], [33, 33]),
+                   ([40, 10], [33, -1])):
+        with pytest.raises(ValueError, match="lens out of range"):
+            dtw_batch(fa, fb, *lens(la, lb))
+    assert (dtw_cuda.dtw_wavefront.launches, dtw_cuda.dtw_backtrace.launches) == launches
+    r = dtw_batch(fa, fb, *lens([40, 10], [33, 20]))
+    ref = dtw_batch(fa.cpu(), fb.cpu(), np.asarray([40, 10]), np.asarray([33, 20]))
+    assert (dtw_cuda.dtw_wavefront.launches, dtw_cuda.dtw_backtrace.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    for name in ("path_i", "path_j", "path_len"):
+        assert torch.equal(getattr(r, name).cpu(), getattr(ref, name))
+    # a host copy of another shape than the device lengths is refused too
+    with pytest.raises(ValueError, match="lens_host"):
+        dtw_cuda._check_lens(torch.ones((2, 2), dtype=torch.int32, device=cuda), 2, 40, 33, cuda,
+                             np.ones((3, 2), np.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,ta,tb", [(3, 1409, 700), (40, 1409, 300), (132, 512, 64),
                                      (1, 4097, 300), (2, 4096, 50)])
 def test_dtw_wavefront_plans_give_equal_codes(cuda, n, ta, tb):
