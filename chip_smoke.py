@@ -24,8 +24,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``nmf_update`` and the one-kernel MU iteration ``nmf_mu_fused`` within a
    relative error max|kernel − plain| / max|plain| of 1e-5 for one call and
    1e-4 after 10 MU steps (they sum in different orders), all three also at
-   K = 115,200 (where ``nmf_update`` is timed beside its twin too), with the
-   launch plans of the two split-K cluster kernels (grid, cluster, tile,
+   K = 115,200 (where ``nmf_update`` is timed beside its twin too) and, for
+   ``nmf_recon`` and ``nmf_update``, at the serving path's stacked solve
+   F = 2752 (four utterances of 688 frames), K = 30,720 (the dictionary and
+   its four VTLP copies), timed, with bound, share and ``torch.matmul``'s
+   time, with the launch plans of the two split-K cluster kernels (grid, cluster, tile,
    shared bytes, clusters the card holds at once) and of ``nmf_update``
    (CTAs, waves at the CTAs an SM that the occupancy query reports, shared
    bytes); the fused Griffin-Lim ``gl_angles_fused`` at 688 × 201 (n_fft
@@ -42,8 +45,11 @@ Phases (any failure exits non-zero and prints no result line):
    held-out utterance 100162) with the default config, launch counters
    reset just before and read just after; every kernel of the default path
    must have launched and neither fused kernel, the audio must be finite
-   and of the input's length, n_iter ≤ max_iter and the MCD finite, and its
-   Griffin-Lim must have captured a graph. Then three warm runs for
+   and of the input's length, n_iter ≤ max_iter and the MCD finite, its
+   Griffin-Lim must have captured a graph, and ``nmf_recon`` must have
+   launched 1 + n_iter times (the error check's recon feeds the next
+   update) and ``nmf_update`` n_iter times. The fenced ``dicts`` stage of
+   five more fresh builds is printed (median and spread). Then three warm runs for
    audio-seconds per second (capturing nothing more) and one with fenced
    stages; the production ``griffin_lim`` on the main path's Y graphed
    against the eager loop (``torch.equal``) for graphs of 10, 50 and 300
@@ -60,12 +66,39 @@ Phases (any failure exits non-zero and prints no result line):
    centered ISTFT, against the production ``griffin_lim`` on the same Y:
    finite audio of the input's length and a spectral convergence within
    the JAX rule sc_fused < 1.3·sc_gl + 0.02;
-5. a small input (3 pairs, 20 MU iterations, 5 Griffin-Lim iterations)
+5. the serving path, counters reset just before, on the same corpus through
+   ``evaluate.heldout_pair``: a ``Converter`` with the default (Frobenius)
+   solver and four VTLP warps (K must be 30,720), ``convert`` of the
+   held-out utterance and ``convert_batch`` of four utterances of different
+   lengths; ``nmf_recon`` and ``nmf_update`` must have launched and no fused
+   kernel; every audio finite and of its input's length; the dictionaries
+   built once (``_aligned_dicts.builds``, ``make_dictionary.builds`` and the
+   DTW launch counters do not move after the constructor). With
+   ``nmf.tol=0`` (a stacked solve has one n_iter, the stacked error's; with
+   the tolerance off both run ``max_iter`` steps) each batch item must equal
+   its single ``convert`` within 1e-4 relative L2 on the converted
+   magnitude and on the audio after 10 Griffin-Lim iterations; the audio
+   after 300 is reported (the iterations grow the float32 rounding
+   difference between a stacked and a single solve). A ``Converter`` from
+   ``load_config(preset="quality")`` (KL, plain torch products by design,
+   ``h_smooth=2``) converts the held-out utterance: finite stand-in MCD. The
+   bfloat16 solve (plain torch by design) runs once beside the float32 one.
+   A ``StreamingConverter`` on the Frobenius dictionaries takes the held-out
+   |STFT| in chunks of 16 frames with its phase (context 32, 60 Griffin-Lim
+   iterations): with ``nmf.tol=0`` the stacked chunk conversions must equal
+   the batch conversion within 1e-4 relative L2; the audio must be finite
+   and of F·hop samples. Printed: ``prepare_seconds``, warm ``convert`` wall
+   (median of 3), ``convert_batch`` wall and its share an utterance, the
+   steady ``push`` wall against the chunk's 80 ms, launches and graph
+   captures. Nothing in the phase catches a failure;
+6. a small input (3 pairs, 20 MU iterations, 5 Griffin-Lim iterations)
    converted on the card and on the CPU (plain twins, which the CPU tests
    hold to the JAX reference): converted magnitude and audio within 1e-3
    relative L2, equal n_iter, MCD within 0.05 dB.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (``launches``: the main
+path's, and for the two fused kernels the fused path's; ``launches_serving``:
+the serving phase's); the last line is
 ``{"ok": true, "device": {...}}``. The stand-in MCD is not comparable to the
 real corpus's.
 """
@@ -439,6 +472,57 @@ def phase_kernels(torch, np, dev) -> dict:
         fail("nmf kernels outside tolerance at K = 115,200")
     del Ab, Hb, Numb, Pb
 
+    # the serving path's stacked solve: four utterances of 688 frames over the
+    # dictionary and its four VTLP copies (5 x 6144 rows); H alone is 338 MB
+    Fs, Ks = 2752, 30_720
+    for name, plan_fn in (("nmf_recon", nmf_recon_plan), ("nmf_update", nmf_update_plan)):
+        pl = plan_fn(Fs, Ks, D, n_sms)
+        say(f"{name} plan at F={Fs} K={Ks} D={D}: grid {pl['grid']} of {pl['threads']} threads, "
+            f"cluster {pl.get('cluster', (1, 1, 1))}, tile {pl['tile']}, {pl['smem_bytes']} B "
+            f"shared, {co_resident_clusters(name, pl, Fs, Ks, D)} at once on {n_sms} SMs")
+    As = np.abs(rng.standard_normal((Ks, D))).astype(np.float32)
+    As[Ks - 300:] = 0.0
+    As = torch.as_tensor(As, device=dev)
+    Xs = torch.as_tensor(np.abs(rng.standard_normal((Fs, D))).astype(np.float32), device=dev)
+    Hs = torch.as_tensor(rng.uniform(0.0, 0.02, (Fs, Ks)).astype(np.float32), device=dev)
+    Nums = Xs @ As.T
+    Ps = nmf_recon_plain(Hs, As)
+    e_rs = rel_err(nmf_recon(Hs, As), Ps)
+    a_rs = float((nmf_recon(Hs, As) - Ps).abs().max())
+    H1s = nmf_update_plain(Ps, As, Hs, Nums)
+    e_us = rel_err(nmf_update(Ps, As, Hs, Nums), H1s)
+    a_us = float((nmf_update(Ps, As, Hs, Nums) - H1s).abs().max())
+    del H1s
+    Hk, Hp = Hs.clone(), Hs.clone()
+    for _ in range(10):
+        Hk = nmf_update(nmf_recon(Hk, As), As, Hk, Nums, out=Hk)
+        Hp = nmf_update_plain(nmf_recon_plain(Hp, As), As, Hp, Nums)
+    e_s10 = rel_err(Hk, Hp)
+    del Hk, Hp
+    torch.cuda.synchronize()
+    say(f"nmf: F={Fs} K={Ks} D={D}: rel err recon {e_rs:.3g}, update {e_us:.3g} (limit 1e-5), "
+        f"10 MU steps {e_s10:.3g} (limit 1e-4)")
+    if not (e_rs <= 1e-5 and e_us <= 1e-5 and e_s10 <= 1e-4):
+        fail("nmf kernels outside tolerance at F = 2752, K = 30,720")
+    fkd_s, fk_s = 2 * Fs * Ks * D, Fs * Ks
+    serving = {
+        "nmf_recon": dict(max_abs_err=a_rs, ms=cuda_ms(lambda: nmf_recon(Hs, As), reps=5),
+                          plain_ms=cuda_ms(lambda: nmf_recon_plain(Hs, As), reps=5),
+                          library_ms=cuda_ms(lambda: torch.matmul(Hs, As), reps=5),
+                          bound=bound(4 * (fk_s + Ks * D + Fs * D), fkd_s)),
+        "nmf_update": dict(max_abs_err=a_us,
+                           ms=cuda_ms(lambda: nmf_update(Ps, As, Hs, Nums), reps=5),
+                           plain_ms=cuda_ms(lambda: nmf_update_plain(Ps, As, Hs, Nums), reps=5),
+                           library_ms=None,
+                           bound=bound(4 * (Fs * D + Ks * D + 3 * fk_s), fkd_s + 4 * fk_s)),
+    }
+    for name, r in serving.items():
+        say(f"  {name} at F={Fs} K={Ks}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {fmt_ms(r['library_ms'])}, bound {r['bound'][0]:.6f} ms ({r['bound'][1]}), "
+            f"roofline share {r['bound'][0] / r['ms']:.4f}, max_abs_err {r['max_abs_err']:.3g}")
+    del As, Xs, Hs, Nums, Ps
+    torch.cuda.empty_cache()
+
     # the fused Griffin-Lim against its twins, 6 iterations under the PERF.md
     # §2 gates, at n_fft 48 (M = 24 = 8 x 3, a radix-3 pass) and at the main
     # path's shape; other tiles give equal bits
@@ -525,13 +609,13 @@ def phase_kernels(torch, np, dev) -> dict:
 
 
 def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
-                    fused: dict) -> dict:
+                    fused: dict) -> tuple[dict, float]:
     from exemplars_vc_tpu_torch.config import load_config
     from exemplars_vc_tpu_torch.dsp import griffin_lim as gl_mod
     from exemplars_vc_tpu_torch.io.store import ArtifactStore
     from exemplars_vc_tpu_torch.io.wav import read_wav
     from exemplars_vc_tpu_torch.pipelines.conv_dicts import extract_stft_complex
-    from exemplars_vc_tpu_torch.pipelines.convert import convert_utterance
+    from exemplars_vc_tpu_torch.pipelines.convert import _aligned_dicts, convert_utterance
 
     data, src, tar = corpus
     cfg = load_config(overrides=["data.tar=TF1", "misc.nb_file=8"])
@@ -564,6 +648,9 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
         f"(stand-in corpus; not comparable to the real corpus's figure)")
     if min(launches.values()) < 1:
         fail(f"a kernel of the main path never launched: {launches}")
+    if launches["nmf_recon"] != 1 + res.n_iter or launches["nmf_update"] != res.n_iter:
+        fail(f"the solve must launch nmf_recon 1 + n_iter times (the error check's recon feeds "
+             f"the next update) and nmf_update n_iter times: {launches}, n_iter {res.n_iter}")
     if captures_cold < 1:
         fail("the main path's Griffin-Lim captured no graph")
     if max(off_path.values()) > 0:
@@ -588,6 +675,57 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
                                src, nb_file=8, sync_stages=True, device=dev)
     say(f"main path: a warm run's fenced stages (s) "
         f"{json.dumps({k: round(v, 6) for k, v in fenced.timings.items()})}")
+
+    # the dictionary stage alone, fenced, from fresh stores (nothing memoised,
+    # the DTW runs): the paths and features go to the store's writer through
+    # pinned copies on a side stream, and only path_len is read back
+    dict_ms = []
+    for k in range(5):
+        store = ArtifactStore(os.path.join(root, f"store_dicts{k}"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _aligned_dicts(cfg, store, data, 8, dev)
+        torch.cuda.synchronize()
+        dict_ms.append((time.perf_counter() - t0) * 1e3)
+        store.flush()
+    say(f"main path: the dicts stage fenced, 5 fresh builds: {[round(v, 3) for v in dict_ms]} ms, "
+        f"median {statistics.median(dict_ms):.4f} ms, min {min(dict_ms):.4f} ms")
+
+    # one more build, its parts fenced one by one
+    from exemplars_vc_tpu_torch.align.dtw import dtw_batch
+    from exemplars_vc_tpu_torch.align.exemplar import build_exemplar_dicts_padded
+    from exemplars_vc_tpu_torch.pipelines.conv_dicts import build_conversion_dicts_pair
+    from exemplars_vc_tpu_torch.pipelines.make_dict import DictionaryArtifacts, pair_mfcc
+
+    parts, t_prev = {}, [0.0]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = round((now - t_prev[0]) * 1e3, 3)
+        t_prev[0] = time.perf_counter()
+
+    store = ArtifactStore(os.path.join(root, "store_dicts_parts"))
+    torch.cuda.synchronize()
+    t_prev[0] = time.perf_counter()
+    (FA, la), (FB, lb) = pair_mfcc(cfg, data, 8, dev)
+    lap("pair MFCC (load, stack, copy to the card, MFCC)")
+    r = dtw_batch(FA, FB, la, lb)
+    path_len = r.path_len.cpu()
+    lap("DTW (cost matmul, both kernels, path_len back)")
+    art = DictionaryArtifacts(path_i=r.path_i, path_j=r.path_j, path_len=path_len, feat_a=FA,
+                              feat_b=FB, len_a=torch.as_tensor(la, device=dev),
+                              len_b=torch.as_tensor(lb, device=dev), distance=r.distance.cpu())
+    store.save("parts", **art.host_copies())
+    lap("pinned copies queued, writer started")
+    sf, tf = build_conversion_dicts_pair(cfg, store, data, "SF1", "TF1", nb_file=8, device=dev)
+    lap("|STFT| of both speakers (stack, copy to the card, STFT)")
+    k_true = int(path_len.sum())
+    build_exemplar_dicts_padded(sf.feats["stft"], tf.feats["stft"], r.path_i, r.path_j,
+                                k_pad=((k_true + 511) // 512) * 512)
+    lap("exemplar gather")
+    store.flush()
+    say(f"main path: one build's parts, each fenced (ms): {json.dumps(parts)}")
 
     if gl_mod.griffin_lim.captures != captures:
         fail(f"a warm run captured graphs again: {gl_mod.griffin_lim.captures - captures}")
@@ -645,7 +783,7 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
     say(f"main path: device time of one warm conversion {fmt_ms(total)}"
         + (f", busy share {total / (med * 1e3):.4f} of the warm median" if total else "")
         + f"; hand-written kernels (calls, ms) {json.dumps(kernels)}")
-    return launches
+    return launches, res.mcd_vs_reference
 
 
 def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> dict:
@@ -744,6 +882,223 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
     return launches
 
 
+def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: dict,
+                  default_mcd: float) -> dict:
+    """The serving path on the stand-in corpus (module docstring, phase 5).
+    Any failed gate exits; nothing here catches one."""
+    from dataclasses import replace
+
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.dsp import griffin_lim as gl_mod
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore, list_speaker_wavs
+    from exemplars_vc_tpu_torch.io.wav import read_wav
+    from exemplars_vc_tpu_torch.pipelines import convert as convert_mod
+    from exemplars_vc_tpu_torch.pipelines.conv_dicts import extract_stft_complex
+    from exemplars_vc_tpu_torch.pipelines.convert import mcd_between_signals
+    from exemplars_vc_tpu_torch.pipelines.evaluate import heldout_pair
+    from exemplars_vc_tpu_torch.pipelines.make_dict import make_dictionary
+    from exemplars_vc_tpu_torch.pipelines.serve import Converter
+    from exemplars_vc_tpu_torch.pipelines.stream import StreamingConverter
+
+    warps = "data.dict_augment_warps=0.9,0.95,1.05,1.1"
+    base = ["data.tar=TF1", "misc.nb_file=8"]
+    cfg_frob = load_config(overrides=base + [warps])
+    cfg_quality = load_config(preset="quality", overrides=base)
+    src, tar = heldout_pair(data)
+    paths = [src] + list_speaker_wavs(data, "SF1")[:3]     # four lengths
+    sigs = [read_wav(p)[0] for p in paths]
+    store = ArtifactStore(os.path.join(root, "store_serving"))
+    all_fns = {**counted, **fused}
+
+    def counts():
+        return {name: fn.launches for name, fn in all_fns.items()}
+
+    def built():
+        return (convert_mod._aligned_dicts.builds, make_dictionary.builds,
+                all_fns["dtw_wavefront"].launches, all_fns["dtw_backtrace"].launches)
+
+    def rel_l2(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def check_audio(what, audio, x):
+        if audio.shape != x.shape or not np.isfinite(audio).all():
+            fail(f"serving: {what}: audio shape {audio.shape} vs input {x.shape}, or not finite")
+
+    convert_mod._DICTS_MEMO.clear()
+    for fn in all_fns.values():
+        fn.launches = 0
+    caps0 = gl_mod.griffin_lim.captures
+    builds0 = built()
+
+    # Frobenius + four warps: the hand-written kernels carry the solve
+    conv, prepare_ms = timed(lambda: Converter(cfg_frob, store, data, nb_file=8, device=dev))
+    A, B = conv.dicts["stft"]
+    K = A.shape[0]
+    prepared = built()
+    say(f"serving: Converter (Frobenius, 4 VTLP warps): K = {K} exemplars, D = {A.shape[1]}; "
+        f"prepare_seconds {conv.prepare_seconds:.4f} (wall {prepare_ms:.2f} ms); dictionary "
+        f"builds {prepared[0] - builds0[0]}, DTW builds {prepared[1] - builds0[1]}, launches "
+        f"{counts()}")
+    if K != 30_720:
+        fail(f"serving: the warped dictionary has K = {K}, not 30,720")
+    if (prepared[0] - builds0[0], prepared[1] - builds0[1]) != (1, 1):
+        fail("serving: the constructor must build the dictionaries exactly once")
+    first, first_ms = timed(lambda: conv.convert(src))
+    check_audio("convert", first.audio, sigs[0])
+    walls = [timed(lambda: conv.convert(src))[1] for _ in range(3)]
+    after_convert = counts()
+    say(f"serving: convert(held-out): F = {1 + len(sigs[0]) // 80}, n_iter {first.nmf_iters}, "
+        f"error {first.nmf_error:.6g}; first call {first_ms:.2f} ms, warm wall "
+        f"{[round(w, 2) for w in walls]} ms, median {statistics.median(walls):.4f} ms; launches "
+        f"of the 4 calls {after_convert}")
+    batch, batch_cold_ms = timed(lambda: conv.convert_batch(paths))
+    batch_walls = [timed(lambda: conv.convert_batch(paths))[1] for _ in range(2)]
+    frames = [1 + len(x) // 80 for x in sigs]
+    for p, b, x in zip(paths, batch, sigs):
+        check_audio(f"convert_batch {os.path.basename(p)}", b.audio, x)
+    singles = [conv.convert(p) for p in paths]
+    single_walls = [timed(lambda p=p: conv.convert(p))[1] for p in paths]
+    bw = statistics.median(batch_walls)
+    say(f"serving: convert_batch of {len(paths)} (frames {frames}, stacked F = {sum(frames)}): "
+        f"one stacked solve, one n_iter for the batch: {batch[0].nmf_iters} (single conversions "
+        f"stop at {[s.nmf_iters for s in singles]}); first call {batch_cold_ms:.2f} ms, warm "
+        f"wall {[round(w, 2) for w in batch_walls]} ms, {bw / len(paths):.4f} ms an utterance; "
+        f"the same four converted one by one, warm: {[round(w, 2) for w in single_walls]} ms, "
+        f"sum {sum(single_walls):.4f} ms")
+    if built() != prepared:
+        fail(f"serving: a conversion built the dictionaries or aligned again: {built()} after "
+             f"{prepared}")
+    frob_counts = counts()
+    if frob_counts["nmf_recon"] < 1 or frob_counts["nmf_update"] < 1:
+        fail(f"serving: the Frobenius solve did not launch its kernels: {frob_counts}")
+    if max(frob_counts[name] for name in fused) > 0:
+        fail(f"serving: a fused kernel launched: {frob_counts}")
+
+    # batch ≡ single, with the tolerance off so that both run max_iter steps.
+    # The stacked solve sums P over other K slices than a single one (the
+    # recon's split follows F), so the converted magnitudes differ by float32
+    # rounding; 300 Griffin-Lim iterations grow that difference, so the audio
+    # is gated after 10 iterations (the budget of the reference's own
+    # batch-against-single test) and reported after 300
+    cfg_exact = replace(cfg_frob, nmf=replace(cfg_frob.nmf, tol=0.0))
+    conv_x = Converter(cfg_exact, store, data, nb_file=8, device=dev)
+    if built() != prepared:
+        fail("serving: a second Converter of the same data built the dictionaries again")
+    mags = [torch.abs(extract_stft_complex(x, cfg_exact, dev)) for x in sigs]
+    st_all = convert_mod._solve_activations(torch.cat(mags), A, cfg_exact)
+    Y_all = (st_all.H @ B).split([m.shape[0] for m in mags])
+    e_y = max(float(torch.linalg.norm(Yb - Y1) / torch.linalg.norm(Y1))
+              for Yb, Y1 in zip(Y_all, ((convert_mod._solve_activations(m, A, cfg_exact).H @ B)
+                                        for m in mags)))
+    del st_all, Y_all
+    worst = {}
+    for iters in (10, None):
+        batch_x = conv_x.convert_batch(paths, synth_iters=iters)
+        errs = []
+        for p, b in zip(paths, batch_x):
+            one = conv_x.convert(p, synth_iters=iters)
+            errs.append(rel_l2(b.audio, one.audio))
+            if b.nmf_iters != one.nmf_iters:
+                fail(f"serving: nmf.tol=0 and yet n_iter {b.nmf_iters} vs {one.nmf_iters}")
+        worst[iters] = max(errs)
+    say(f"serving: batch against single at nmf.tol=0 ({batch_x[0].nmf_iters} steps both), worst "
+        f"of {len(paths)}: converted magnitude rel L2 {e_y:.3g} (limit 1e-4); audio rel L2 "
+        f"after 10 Griffin-Lim iterations {worst[10]:.3g} (limit 1e-4), after "
+        f"{cfg_exact.nmf.griffin_lim_iters} {worst[None]:.3g} (reported: the iterations grow a "
+        f"rounding difference of the magnitudes)")
+    if e_y > 1e-4 or worst[10] > 1e-4:
+        fail("serving: a batch item differs from its single conversion")
+
+    # the bfloat16 solve: plain torch products by design, no hand-written kernel
+    before = counts()
+    conv_bf = Converter(replace(cfg_frob, nmf=replace(cfg_frob.nmf, work_dtype="bfloat16")),
+                        store, data, nb_file=8, device=dev)
+    bf, _ = timed(lambda: conv_bf.convert(src))
+    bf_walls = [timed(lambda: conv_bf.convert(src))[1] for _ in range(3)]
+    check_audio("bfloat16 convert", bf.audio, sigs[0])
+    if counts() != before:
+        fail("serving: the bfloat16 solve launched a hand-written kernel")
+    say(f"serving: nmf.work_dtype=bfloat16 (plain torch products by design, no hand-written "
+        f"kernel): n_iter {bf.nmf_iters}, error {bf.nmf_error:.6g} against float32's "
+        f"{first.nmf_error:.6g}; warm wall median {statistics.median(bf_walls):.4f} ms")
+
+    # the quality preset: KL (plain torch by design), the same warps, h_smooth=2
+    before = counts()
+    conv_q, q_prepare_ms = timed(lambda: Converter(cfg_quality, store, data, nb_file=8,
+                                                   device=dev))
+    if built() != prepared or conv_q.dicts["stft"][0].shape[0] != 30_720:
+        fail("serving: the quality preset shares the warped dictionaries and must not rebuild")
+    q, q_first_ms = timed(lambda: conv_q.convert(src))
+    q_walls = [timed(lambda: conv_q.convert(src))[1] for _ in range(3)]
+    check_audio("quality convert", q.audio, sigs[0])
+    qb = conv_q.convert_batch(paths[:2])
+    for p, b, x in zip(paths, qb, sigs):
+        check_audio(f"quality convert_batch {os.path.basename(p)}", b.audio, x)
+    ref_sig, _ = read_wav(tar)
+    mcd_q = mcd_between_signals(q.audio, ref_sig, cfg_quality, dev)
+    mcd_f = mcd_between_signals(first.audio, ref_sig, cfg_frob, dev)
+    if counts()["nmf_recon"] != before["nmf_recon"]:
+        fail("serving: the KL solve launched the Frobenius kernels")
+    say(f"serving: quality preset (KL, plain torch products by design; 4 warps; h_smooth=2): "
+        f"prepare {q_prepare_ms:.2f} ms (memoised dictionaries), n_iter {q.nmf_iters}, first "
+        f"call {q_first_ms:.2f} ms, warm wall median {statistics.median(q_walls):.4f} ms")
+    say(f"serving: stand-in preset MCD {mcd_q:.4f} dB; Frobenius + 4 warps {mcd_f:.4f} dB; the "
+        f"default configuration {default_mcd:.4f} dB (stand-in corpus; not comparable to the "
+        f"real corpus's figures)")
+    if not (np.isfinite(mcd_q) and np.isfinite(mcd_f)):
+        fail(f"serving: MCD {mcd_q}, {mcd_f}")
+
+    # streaming on the Frobenius dictionaries
+    S = extract_stft_complex(sigs[0], cfg_frob, dev)
+    X = torch.abs(S)
+    F, chunk, hop = X.shape[0], 16, cfg_frob.mcep.hop_length
+    sc_x = StreamingConverter(cfg_exact, A, B, context_frames=32, synth_iters=60, device=dev)
+    streamed = torch.cat([sc_x._convert_block(X[i: i + chunk]) for i in range(0, F, chunk)])
+    whole = sc_x._convert_block(X)
+    e_stream = float(torch.linalg.norm(streamed - whole) / torch.linalg.norm(whole))
+    say(f"serving: stream: F = {F} in chunks of {chunk}: stacked chunk conversions against the "
+        f"batch conversion at nmf.tol=0: rel L2 {e_stream:.3g} (limit 1e-4)")
+    if e_stream > 1e-4:
+        fail("serving: chunked conversion differs from the batch conversion")
+    caps_stream = gl_mod.griffin_lim.captures
+    sc = StreamingConverter(cfg_frob, A, B, context_frames=32, synth_iters=60, device=dev)
+    outs, push_ms = [], []
+    for i in range(0, F, chunk):
+        y, ms = timed(lambda i=i: sc.push(X[i: i + chunk], S[i: i + chunk]))
+        outs.append(y)
+        push_ms.append(ms)
+    audio = np.concatenate(outs)
+    if audio.shape != (F * hop,) or not np.isfinite(audio).all():
+        fail(f"serving: stream audio shape {audio.shape} vs {(F * hop,)}, or not finite")
+    steady = push_ms[3:]          # the context is full from the fourth push on
+    chunk_ms = 1e3 * chunk * hop / cfg_frob.data.sr
+    say(f"serving: stream: {len(push_ms)} pushes of {chunk} frames ({chunk_ms:.1f} ms of audio "
+        f"each), context 32, 60 Griffin-Lim iterations: first three pushes "
+        f"{[round(v, 2) for v in push_ms[:3]]} ms (the context grows: a graph capture each), "
+        f"steady push median {statistics.median(steady):.4f} ms, max {max(steady):.4f} ms, "
+        f"{statistics.median(steady) / chunk_ms:.4f} of real time; Griffin-Lim graphs captured "
+        f"by the stream {gl_mod.griffin_lim.captures - caps_stream}")
+    # a second converter from a fresh store: the whole preparation again, warm
+    conv2 = Converter(cfg_frob, ArtifactStore(os.path.join(root, "store_serving2")), data,
+                      nb_file=8, device=dev)
+    say(f"serving: a second Converter from a fresh store: prepare_seconds "
+        f"{conv2.prepare_seconds:.4f} (the first, {conv.prepare_seconds:.4f}, was the first use "
+        f"in the process of the expansion's kernels)")
+    launches = counts()
+    say(f"serving: launches of the whole phase {launches}; Griffin-Lim graphs captured "
+        f"{gl_mod.griffin_lim.captures - caps0} (kept for the {gl_mod._GRAPHS_KEPT} most recent "
+        f"shapes)")
+    return launches
+
+
 def phase_small_agreement(torch, np, dev, root: str) -> None:
     from exemplars_vc_tpu_torch.config import load_config
     from exemplars_vc_tpu_torch.io.store import ArtifactStore
@@ -827,8 +1182,9 @@ def main() -> None:
     kern = phase_kernels(torch, np, dev)
     with tempfile.TemporaryDirectory(prefix="evc_chip_smoke_") as root:
         corpus = build_standin_corpus(os.path.join(root, "corpus"))
-        launches = phase_main_path(torch, np, dev, root, corpus, counted, fused)
+        launches, default_mcd = phase_main_path(torch, np, dev, root, corpus, counted, fused)
         launches.update(phase_fused_path(torch, np, dev, root, corpus, fused))
+        serving = phase_serving(torch, np, dev, root, corpus[0], counted, fused, default_mcd)
         phase_small_agreement(torch, np, dev, root)
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -836,6 +1192,7 @@ def main() -> None:
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
+         "launches_serving": serving[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"]}

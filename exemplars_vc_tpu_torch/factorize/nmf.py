@@ -83,18 +83,18 @@ def _nmf_activations_stored(X: torch.Tensor, A: torch.Tensor, beta_loss: str, to
     At = A.T.contiguous()
     avg = torch.sqrt(torch.clamp(X.mean(), min=0.0) / K)
     H = avg.to(dtype).expand(F, K).contiguous()
-    Xf = X.float()
+    Xf, A32, At32 = X.float(), A.float(), At.float()   # the rounded values, widened once
 
     if beta_loss == "frobenius":
         Num = _dot_stored(X, At)
 
         def step(H):
-            den = _dot(_dot_stored(H, A), At) + l1
+            den = _dot(_dot_stored(H, A), At32) + l1
             den = torch.where(den == 0.0, EPS, den)
             return (H.float() * (Num.float() / den)).to(dtype)
 
         def error(H):
-            return _frob_error(Xf, _dot(H, A))
+            return _frob_error(Xf, _dot(H, A32))
     elif beta_loss in ("kullback-leibler", "kl"):
         den = A.sum(dim=1)[None, :].to(dtype) + l1
         den = torch.where(den == 0.0, EPS, den)
@@ -104,7 +104,7 @@ def _nmf_activations_stored(X: torch.Tensor, A: torch.Tensor, beta_loss: str, to
             return H * (_dot_stored(ratio, At) / den)
 
         def error(H):
-            return _kl_error(Xf, _dot(H, A))
+            return _kl_error(Xf, _dot(H, A32))
     else:
         raise ValueError(f"unknown beta_loss {beta_loss!r}")
     H, n_iter, err = _mu_loop(H, step, error, tol, max_iter, check_every)

@@ -28,7 +28,9 @@ FORBIDDEN = ("jax", "jaxlib", "exemplars_vc_tpu")
 
 
 def _port_sources():
-    return sorted((REPO / "exemplars_vc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / "exemplars_vc_tpu_torch").rglob("*.py"))
+            + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+            + sorted((REPO / "tools").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path) -> list[tuple[int, str]]:

@@ -124,15 +124,17 @@ def test_dtw_batch_refuses_out_of_range_lengths(cuda, host_lens):
             dtw_batch(fa, fb, *lens(la, lb))
     assert (dtw_cuda.dtw_wavefront.launches, dtw_cuda.dtw_backtrace.launches) == launches
     r = dtw_batch(fa, fb, *lens([40, 10], [33, 20]))
-    ref = dtw_batch(fa.cpu(), fb.cpu(), np.asarray([40, 10]), np.asarray([33, 20]))
     assert (dtw_cuda.dtw_wavefront.launches, dtw_cuda.dtw_backtrace.launches) == \
         (launches[0] + 1, launches[1] + 1)
-    for name in ("path_i", "path_j", "path_len"):
-        assert torch.equal(getattr(r, name).cpu(), getattr(ref, name))
+    both = torch.tensor([[40, 33], [10, 20]], dtype=torch.int32, device=cuda)
+    cost, dirs = dtw_cuda.dtw_wavefront_plain(pairwise_sqdist(fa, fb).contiguous(), both)
+    assert torch.equal(r.raw_distance, cost)
+    for got, ref in zip((r.path_i, r.path_j, r.path_len),
+                        dtw_cuda.dtw_backtrace_plain(dirs, both)):
+        assert torch.equal(got, ref)
     # a host copy of another shape than the device lengths is refused too
     with pytest.raises(ValueError, match="lens_host"):
-        dtw_cuda._check_lens(torch.ones((2, 2), dtype=torch.int32, device=cuda), 2, 40, 33, cuda,
-                             np.ones((3, 2), np.int32))
+        dtw_cuda._check_lens(both, 2, 40, 33, both.device, np.ones((3, 2), np.int32))
 
 
 @pytest.mark.cuda

@@ -413,3 +413,34 @@ def test_heldout_pair_equals_jax(corpus):
     assert tevaluate.HELD_OUT_UTT == jevaluate.HELD_OUT_UTT
     assert tevaluate.heldout_pair(data) == jevaluate.heldout_pair(data) == (src, tar)
     assert tevaluate.heldout_pair(data, "SM1", "TM3") == jevaluate.heldout_pair(data, "SM1", "TM3")
+
+
+def test_dictionary_host_copies_reach_the_store(tmp_path):
+    """``host_copies`` hands the store what its writer thread can turn into
+    arrays: on the CPU the arrays themselves; for a copy still in flight a
+    handle whose array waits for the copy's event (a stub here)."""
+    rng = np.random.default_rng(13)
+    arrays = dict(path_i=rng.integers(-1, 9, (2, 7)), path_j=rng.integers(-1, 9, (2, 7)),
+                  path_len=np.array([5, 7]), feat_a=rng.standard_normal((2, 9, 3)),
+                  feat_b=rng.standard_normal((2, 9, 3)), len_a=np.array([9, 8]),
+                  len_b=np.array([9, 7]), distance=rng.standard_normal(2))
+    art = tmake_dict.from_jax_artifacts(arrays, "cpu")
+    assert art.path_len.device.type == "cpu" and art.path_len.dtype == torch.int32
+    host = art.host_copies()
+    assert sorted(host) == sorted(arrays)
+    for k, v in art.to_numpy().items():
+        np.testing.assert_array_equal(np.asarray(host[k]), v)
+
+    class Event:
+        waited = 0
+
+        def synchronize(self):
+            Event.waited += 1
+
+    handle = tmake_dict._HostCopy(art.feat_a, Event())
+    store = ArtifactStore(str(tmp_path))
+    store.save("k", feat_a=handle, path_i=host["path_i"])
+    got = store.load("k")                                   # joins the writer thread
+    assert Event.waited == 1
+    np.testing.assert_array_equal(got["feat_a"], art.feat_a.numpy())
+    assert np.asarray(handle, dtype=np.float64).dtype == np.float64
