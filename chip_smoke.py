@@ -19,8 +19,13 @@ Phases (any failure exits non-zero and prints no result line):
    backtrace must be exactly equal (the DP is min/add only) at the main
    path's 8 × 1408² (timed, with the time a diagonal step), the MCD's
    1 × 683² (timed), 1409 × 1300, 300 × 517, 517 × 300 (with la = 1 and
-   lb = 1 rows) and the longest Ta the wrappers take, 32,768 × 2000 (timed,
-   its twins once), with 32,769 refused naming ROADMAP queue 1 item 12; ``nmf_recon``,
+   lb = 1 rows) and the longest Ta one launch takes, 32,768 × 2000 (timed,
+   its twins once); the wavefront in row bands (one launch a band, each
+   band's last row handed to the next): the main path's 8 × 1408² in bands
+   of 1024 rows equal to the twin, and a 40,000 × 500 pair (two bands of the
+   default 32,768 rows) equal to bands of 8192 rows in codes, path and
+   distance, its path monotone from (0, 0) to (39,999, 499), timed, with
+   each band's device time; ``nmf_recon``,
    ``nmf_update`` and the one-kernel MU iteration ``nmf_mu_fused`` within a
    relative error max|kernel − plain| / max|plain| of 1e-5 for one call and
    1e-4 after 10 MU steps (they sum in different orders), all three also at
@@ -28,7 +33,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``nmf_recon`` and ``nmf_update``, at the serving path's stacked solve
    F = 2752 (four utterances of 688 frames), K = 30,720 (the dictionary and
    its four VTLP copies), timed, with bound, share and ``torch.matmul``'s
-   time, with the launch plans of the two split-K cluster kernels (grid, cluster, tile,
+   time, and at the WORLD path's solve F = 688, K = 6144, D = 513 (the same
+   gates, timed, with bound, share and ``torch.matmul``'s time), with the
+   launch plans of the two split-K cluster kernels (grid, cluster, tile,
    shared bytes, clusters the card holds at once) and of ``nmf_update``
    (CTAs, waves at the CTAs an SM that the occupancy query reports, shared
    bytes); the fused Griffin-Lim ``gl_angles_fused`` at 688 × 201 (n_fft
@@ -94,11 +101,31 @@ Phases (any failure exits non-zero and prints no result line):
 6. a small input (3 pairs, 20 MU iterations, 5 Griffin-Lim iterations)
    converted on the card and on the CPU (plain twins, which the CPU tests
    hold to the JAX reference): converted magnitude and audio within 1e-3
-   relative L2, equal n_iter, MCD within 0.05 dB.
+   relative L2, equal n_iter, MCD within 0.05 dB;
+7. the WORLD path (``data.use_stft=false``, the default WORLD
+   configuration: DIO + StoneMask, fft 1024, 5 ms frames, log-MV f0, power
+   sp, residual on) on the stand-in corpus, counters reset just before:
+   ``convert_utterance`` of the held-out utterance, one cold run with
+   fenced stages, then three warm runs from fresh stores (the 16 WORLD
+   analyses and the DTW every time); ``dtw_wavefront`` and
+   ``dtw_backtrace`` must have launched twice each, ``nmf_recon`` (1 +
+   n_sp) + (1 + n_ap) times and ``nmf_update`` n_sp + n_ap times, and no
+   fused kernel. Printed: the stages, the (F, K, D) and n_iter of the sp and
+   ap solves, the host syncs of the f0 contour relaxation, the device time
+   of a warm conversion and its kernels, the stand-in WORLD MCD (not
+   comparable to the corpus's). Then the held-out utterance's WORLD
+   features on the card against the port's CPU run (voicing on ≥ 99 % of
+   frames, sp within 0.05 dB median on frames voiced in both) and a small
+   WORLD conversion (3 pairs, 20 MU iterations) card against CPU (converted
+   sp and ap within 1e-3 relative L2); one conversion each with
+   ``world.f0_method=harvest`` and with ``world.sp_domain=magnitude`` and
+   ``nmf.use_residual=off``; a WORLD ``Converter``: ``convert`` and
+   ``convert_batch`` of two, each item within 1e-5 relative L2 of its
+   single conversion. Nothing in the phase catches a failure.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: the main
 path's, and for the two fused kernels the fused path's; ``launches_serving``:
-the serving phase's); the last line is
+the serving phase's; ``launches_world``: the WORLD phase's); the last line is
 ``{"ok": true, "device": {...}}``. The stand-in MCD is not comparable to the
 real corpus's.
 """
@@ -249,6 +276,126 @@ def gl_yardstick(torch, mag, ang0, n_fft: int, hop: int, n_iter: int, momentum: 
     return graph.replay, out
 
 
+def kernel_events_ms(fn, name: str) -> list[float]:
+    """Device milliseconds of each launch of the kernel ``name`` in one
+    profiled ``fn()``, in launch order."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA and name in ev.name),
+                 key=lambda ev: ev.time_range.start)
+    return [ev.time_range.elapsed_us() / 1e3 for ev in evs]
+
+
+def dtw_long(torch, np, dev, rng) -> dict:
+    """A source longer than one launch's reach: 40,000 × 500 (4-dim
+    features), the default bands (32,768 + 7,232 rows) against bands of
+    8192 rows, byte for byte; the path monotone and from corner to corner."""
+    from exemplars_vc_tpu_torch.align import dtw_cuda
+    from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
+    from exemplars_vc_tpu_torch.align.dtw_cuda import dtw_backtrace, dtw_wavefront
+
+    ta, tb = 40_000, 500
+    fa = torch.as_tensor(rng.standard_normal((1, ta, 4)).astype(np.float32), device=dev)
+    fb = torch.as_tensor(rng.standard_normal((1, tb, 4)).astype(np.float32), device=dev)
+    C = pairwise_sqdist(fa, fb).contiguous()
+    lens = torch.tensor([[ta, tb]], dtype=torch.int32, device=dev)
+    runs = {}
+    for rows in (dtw_cuda.MAX_TA, 8192):
+        launched = dtw_wavefront.launches
+        cost, dirs = dtw_wavefront(C, lens, band_rows=rows)
+        paths = dtw_backtrace(dirs, lens)
+        torch.cuda.synchronize()
+        runs[rows] = (dtw_wavefront.launches - launched, cost, paths)
+        if rows == dtw_cuda.MAX_TA:
+            dirs_default = dirs
+        elif not torch.equal(dirs, dirs_default):
+            fail(f"dtw {ta} x {tb}: codes in bands of {rows} rows differ from the default bands "
+                 f"at {int((dirs != dirs_default).sum())} cells")
+        del dirs
+    (nb, cost, paths), (nb8, cost8, paths8) = runs[dtw_cuda.MAX_TA], runs[8192]
+    if not (torch.equal(cost, cost8) and all(torch.equal(a, b) for a, b in zip(paths, paths8))):
+        fail(f"dtw {ta} x {tb}: distance or path differ between the bands")
+    n = int(paths[2][0])
+    pi, pj = paths[0][0, :n].cpu(), paths[1][0, :n].cpu()
+    if not ((pi.diff() >= 0).all() and (pj.diff() >= 0).all()
+            and (int(pi[0]), int(pj[0]), int(pi[-1]), int(pj[-1])) == (0, 0, ta - 1, tb - 1)):
+        fail(f"dtw {ta} x {tb}: the path is not monotone from (0, 0) to ({ta - 1}, {tb - 1})")
+    ms = cuda_ms(lambda: dtw_wavefront(C, lens), reps=3)
+    ms8 = cuda_ms(lambda: dtw_wavefront(C, lens, band_rows=8192), reps=3)
+    bt_ms = cuda_ms(lambda: dtw_backtrace(dirs_default, lens), reps=3)
+    per_band = kernel_events_ms(lambda: dtw_wavefront(C, lens), "dtw_wavefront_kernel")
+    say(f"dtw {ta} x {tb} in row bands: {nb} bands of <= {dtw_cuda.MAX_TA} rows equal {nb8} bands "
+        f"of 8192 (codes, distance {float(cost[0]) / (ta + tb):.6f}, path of {n} cells, monotone "
+        f"from (0, 0) to ({ta - 1}, {tb - 1})); wavefront {ms:.4f} ms (bands of 8192: {ms8:.4f} "
+        f"ms), device time a band {[round(v, 4) for v in per_band]} ms; backtrace {bt_ms:.4f} ms; "
+        f"codes {(ta + tb - 1) * ta / 2**30:.3f} GiB")
+    del dirs_default
+    torch.cuda.empty_cache()
+    return dict(ms=ms, ms_8192=ms8, band_ms=per_band, backtrace_ms=bt_ms, bands=nb)
+
+
+def nmf_world_shape(torch, np, dev, rng, n_sms) -> dict:
+    """``nmf_recon`` and ``nmf_update`` at the WORLD path's solve, F = 688,
+    K = 6144, D = 513 (sp and ap: fft 1024), against their twins (1e-5 one
+    call, 1e-4 after 10 MU steps), timed beside the twins, the bound and
+    ``torch.matmul``."""
+    from exemplars_vc_tpu_torch.factorize.nmf_cuda import (
+        co_resident_clusters, nmf_recon, nmf_recon_plain, nmf_recon_plan, nmf_update,
+        nmf_update_plain, nmf_update_plan)
+
+    F, K, D = 688, 6144, 513
+    for name, plan_fn in (("nmf_recon", nmf_recon_plan), ("nmf_update", nmf_update_plan)):
+        pl = plan_fn(F, K, D, n_sms)
+        say(f"{name} plan at F={F} K={K} D={D}: grid {pl['grid']} of {pl['threads']} threads, "
+            f"cluster {pl.get('cluster', (1, 1, 1))}, tile {pl['tile']}, {pl['smem_bytes']} B "
+            f"shared, {co_resident_clusters(name, pl, F, K, D)} at once on {n_sms} SMs")
+    A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
+    A[K - 300:] = 0.0
+    A = torch.as_tensor(A, device=dev)
+    X = torch.as_tensor(np.abs(rng.standard_normal((F, D))).astype(np.float32), device=dev)
+    H = torch.as_tensor(rng.uniform(0.0, 0.02, (F, K)).astype(np.float32), device=dev)
+    Num = X @ A.T
+    P = nmf_recon_plain(H, A)
+    H1 = nmf_update_plain(P, A, H, Num)
+    e_r, e_u = rel_err(nmf_recon(H, A), P), rel_err(nmf_update(P, A, H, Num), H1)
+    Hk, Hp = H.clone(), H.clone()
+    for _ in range(10):
+        Hk = nmf_update(nmf_recon(Hk, A), A, Hk, Num, out=Hk)
+        Hp = nmf_update_plain(nmf_recon_plain(Hp, A), A, Hp, Num)
+    e_10 = rel_err(Hk, Hp)
+    torch.cuda.synchronize()
+    say(f"nmf: F={F} K={K} D={D} (the WORLD solve): rel err recon {e_r:.3g}, update {e_u:.3g} "
+        f"(limit 1e-5), 10 MU steps {e_10:.3g} (limit 1e-4)")
+    if not (e_r <= 1e-5 and e_u <= 1e-5 and e_10 <= 1e-4):
+        fail("nmf kernels outside tolerance at D = 513")
+    fkd, fk = 2 * F * K * D, F * K
+    out = {
+        "nmf_recon": dict(max_abs_err=float((nmf_recon(H, A) - P).abs().max()),
+                          ms=cuda_ms(lambda: nmf_recon(H, A)),
+                          plain_ms=cuda_ms(lambda: nmf_recon_plain(H, A)),
+                          library_ms=cuda_ms(lambda: torch.matmul(H, A)),
+                          bound=bound(4 * (fk + K * D + F * D), fkd)),
+        "nmf_update": dict(max_abs_err=float((nmf_update(P, A, H, Num) - H1).abs().max()),
+                           ms=cuda_ms(lambda: nmf_update(P, A, H, Num)),
+                           plain_ms=cuda_ms(lambda: nmf_update_plain(P, A, H, Num)),
+                           library_ms=None,
+                           bound=bound(4 * (F * D + K * D + 3 * fk), fkd + 4 * fk)),
+    }
+    for name, r in out.items():
+        say(f"  {name} at F={F} K={K} D={D}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, library {fmt_ms(r['library_ms'])}, bound {r['bound'][0]:.6f} ms "
+            f"({r['bound'][1]}), roofline share {r['bound'][0] / r['ms']:.4f}, max_abs_err "
+            f"{r['max_abs_err']:.3g}")
+    return out
+
+
 def phase_kernels(torch, np, dev) -> dict:
     from exemplars_vc_tpu_torch.align import dtw_cuda
     from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
@@ -271,7 +418,7 @@ def phase_kernels(torch, np, dev) -> dict:
     # MFCC) and the MCD's (one pair of 683 mel-cepstral frames, order 25),
     # timed; then the edges: Ta > 1024 and not a multiple of 32, Ta < Tb,
     # Ta > Tb, la = 1 and lb = 1, and the longest Ta the wrappers take
-    def dtw_case(name, n, ta, tb, dim, lens_rows, timed, plain_reps=3):
+    def dtw_case(name, n, ta, tb, dim, lens_rows, timed, plain_reps=3, band_rows=None):
         fa = torch.as_tensor(rng.standard_normal((n, ta, dim)).astype(np.float32), device=dev)
         fb = torch.as_tensor(rng.standard_normal((n, tb, dim)).astype(np.float32), device=dev)
         lens = torch.as_tensor(np.asarray(lens_rows, np.int32), device=dev)
@@ -283,6 +430,17 @@ def phase_kernels(torch, np, dev) -> dict:
         if not (torch.equal(dirs_k, dirs_p) and torch.equal(cost_k, cost_p)):
             fail(f"dtw_wavefront != twin at {name}: {int((dirs_k != dirs_p).sum())} codes "
                  f"differ, max cost diff {float((cost_k - cost_p).abs().max())}")
+        if band_rows is not None:
+            launched = dtw_wavefront.launches
+            cost_b, dirs_b = dtw_wavefront(C, lens, band_rows=band_rows)
+            torch.cuda.synchronize()
+            bands = dtw_wavefront.launches - launched
+            if not (torch.equal(dirs_b, dirs_p) and torch.equal(cost_b, cost_p)):
+                fail(f"dtw_wavefront in bands of {band_rows} rows != twin at {name}: "
+                     f"{int((dirs_b != dirs_p).sum())} codes differ")
+            say(f"dtw {name}: the wavefront in {bands} bands of {band_rows} rows equals the "
+                f"twin (codes and costs)")
+            del dirs_b
         del dirs_p
         paths_k = dtw_backtrace(dirs_k, lens)
         paths_p = dtw_backtrace_plain(dirs_k, lens)
@@ -332,7 +490,7 @@ def phase_kernels(torch, np, dev) -> dict:
     T = 1408
     main = dtw_case("main path", 8, T, T, 20,
                     np.stack([rng.integers(1100, T + 1, 8), rng.integers(1100, T + 1, 8)], 1),
-                    timed=True)
+                    timed=True, band_rows=1024)
     out["dtw_wavefront"], out["dtw_backtrace"] = main["wavefront"], main["backtrace"]
     say(f"  main path costs {[round(float(c), 3) for c in main['cost'][:3]]}..., path_len "
         f"{main['paths'][2][:3].tolist()}...")
@@ -347,14 +505,7 @@ def phase_kernels(torch, np, dev) -> dict:
         say(f"  dtw_{name} at Ta = {dtw_cuda.MAX_TA} x 2000: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     del top
-    try:
-        dtw_wavefront(torch.zeros((1, dtw_cuda.MAX_TA + 1, 2), device=dev),
-                      torch.tensor([[1, 1]], dtype=torch.int32, device=dev))
-        fail(f"dtw_wavefront took Ta = {dtw_cuda.MAX_TA + 1}")
-    except ValueError as e:
-        if "queue 1 item 12" not in str(e):
-            fail(f"the refusal of Ta = {dtw_cuda.MAX_TA + 1} names no ROADMAP item: {e}")
-        say(f"dtw Ta = {dtw_cuda.MAX_TA + 1}: refused ({e})")
+    out["_dtw_long"] = dtw_long(torch, np, dev, rng)
     out["_dtw_mcd"] = mcd
 
     # NMF at the main path's shapes
@@ -522,6 +673,7 @@ def phase_kernels(torch, np, dev) -> dict:
             f"roofline share {r['bound'][0] / r['ms']:.4f}, max_abs_err {r['max_abs_err']:.3g}")
     del As, Xs, Hs, Nums, Ps
     torch.cuda.empty_cache()
+    out["_nmf_world"] = nmf_world_shape(torch, np, dev, rng, n_sms)
 
     # the fused Griffin-Lim against its twins, 6 iterations under the PERF.md
     # §2 gates, at n_fft 48 (M = 24 = 8 x 3, a radix-3 pass) and at the main
@@ -596,6 +748,7 @@ def phase_kernels(torch, np, dev) -> dict:
         f"{fmt_ms(prod[True][1])}), eager {prod[False][0]:.4f} ms (device "
         f"{fmt_ms(prod[False][1])})")
     mcd = out.pop("_dtw_mcd")
+    extra = {k: out.pop(k) for k in ("_dtw_long", "_nmf_world")}
     for name, r in out.items():
         say(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
@@ -605,6 +758,7 @@ def phase_kernels(torch, np, dev) -> dict:
         say(f"  dtw_{name} at the MCD shape: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), roofline share "
             f"{r['bound_ms'] / r['ms']:.4f}")
+    out.update(extra)
     return out
 
 
@@ -1124,6 +1278,154 @@ def phase_small_agreement(torch, np, dev, root: str) -> None:
         fail("card and CPU disagree on the small input")
 
 
+def phase_world(torch, np, dev, root: str, corpus: tuple, counted: dict, fused: dict) -> dict:
+    """The WORLD path on the stand-in corpus (module docstring, phase 7).
+    Any failed gate exits; nothing here catches one."""
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.io.standin import build_standin_corpus
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.io.wav import read_wav
+    from exemplars_vc_tpu_torch.pipelines import convert as convert_mod
+    from exemplars_vc_tpu_torch.pipelines.conv_dicts import extract_world_features
+    from exemplars_vc_tpu_torch.pipelines.convert import convert_utterance
+    from exemplars_vc_tpu_torch.pipelines.serve import Converter
+    from exemplars_vc_tpu_torch.world import dio
+
+    data, src, tar = corpus
+    base = ["data.tar=TF1", "misc.nb_file=8", "data.use_stft=false"]
+    cfg = load_config(overrides=base)
+    all_fns = {**counted, **fused}
+    audio_s = 0.0
+    for spk in ("SF1", "TF1"):
+        for name in sorted(os.listdir(os.path.join(data, spk))):
+            x, sr = read_wav(os.path.join(data, spk, name))
+            audio_s += len(x) / sr
+    x_in, sr = read_wav(src)
+    audio_s += len(x_in) / sr
+
+    def rel_l2(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def convert(store_name, c=cfg, **kw):
+        return convert_utterance(c, ArtifactStore(os.path.join(root, store_name)), data, src,
+                                 nb_file=8, device=dev, **kw)
+
+    convert_mod._DICTS_MEMO.clear()
+    for fn in all_fns.values():
+        fn.launches = 0
+    syncs0 = dio.extend_from_candidates.syncs
+    t0 = time.perf_counter()
+    res = convert("world0", reference_wav=tar, sync_stages=True)
+    cold_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in all_fns.items()}
+    syncs = dio.extend_from_candidates.syncs - syncs0
+    (F, K, D, n_sp), (_, K_ap, D_ap, n_ap) = res.solves["sp"], res.solves["ap"]
+    say(f"world: solves sp (F, K, D) = {(F, K, D)} n_iter {n_sp}, ap {(F, K_ap, D_ap)} n_iter "
+        f"{n_ap}; nmf_error {res.nmf_error:.6g}")
+    say(f"world: launches {launches}; f0 contour relaxation: {syncs} host syncs in the run "
+        f"(three analyses: each speaker's 8 utterances as one batch, the input; one sync every "
+        f"{dio.EXTEND_CHECK_EVERY} sweeps)")
+    say(f"world: first run {cold_s:.4f} s, fenced stages (s) "
+        f"{json.dumps({k: round(v, 6) for k, v in res.timings.items()})}")
+    say(f"world: stand-in held-out WORLD MCD {res.mcd_vs_reference:.4f} dB (stand-in corpus; "
+        f"not comparable to the real corpus's figure)")
+    want = {"dtw_wavefront": 2, "dtw_backtrace": 2, "nmf_recon": (1 + n_sp) + (1 + n_ap),
+            "nmf_update": n_sp + n_ap, "nmf_mu_fused": 0, "gl_angles_fused": 0}
+    if launches != want:
+        fail(f"world: launches {launches}, expected {want}")
+    if (D, D_ap) != (513, 513) or K != K_ap:
+        fail(f"world: the solves' shapes {res.solves}")
+    if res.audio.shape != ((F - 1) * 80,) or not np.isfinite(res.audio).all():
+        fail(f"world: audio shape {res.audio.shape} for F = {F}, or not finite")
+    if not np.isfinite(res.mcd_vs_reference):
+        fail(f"world: MCD {res.mcd_vs_reference}")
+
+    warm = []
+    for k in range(3):
+        t0 = time.perf_counter()
+        convert(f"world{k + 1}")
+        warm.append(time.perf_counter() - t0)
+    med = statistics.median(warm)
+    say(f"world: warm runs {[round(w, 4) for w in warm]} s (fresh stores: the 16 analyses and "
+        f"the DTW every time), audio {audio_s:.3f} s, {audio_s / med:.3f} audio-s/s (median)")
+    fenced = convert("world_fenced", sync_stages=True)
+    say(f"world: a warm run's fenced stages (s) "
+        f"{json.dumps({k: round(v, 6) for k, v in fenced.timings.items()})}")
+    total, per = device_profile(lambda: convert(f"world_prof{time.perf_counter_ns()}"))
+    kernels = {name: (calls, round(ms, 6)) for name, (calls, ms) in per.items()
+               if any(k in name for k in ("dtw_wavefront_kernel", "dtw_backtrace_kernel",
+                                          "nmf_recon_kernel", "nmf_update_kernel"))}
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:8]
+    say(f"world: device time of one warm conversion {fmt_ms(total)}"
+        + (f", busy share {total / (med * 1e3):.4f} of the warm median" if total else "")
+        + f"; hand-written kernels (calls, ms) {json.dumps(kernels)}; the most device time: "
+        + json.dumps([[name[:60], calls, round(ms, 3)] for name, (calls, ms) in top]))
+
+    # the held-out utterance's WORLD features, card against the port's CPU run
+    fc = extract_world_features(x_in, cfg, dev)
+    fh = extract_world_features(x_in, cfg, "cpu")
+    f0c, f0h = fc["f0"][:, 0].cpu().numpy(), fh["f0"][:, 0].numpy()
+    agree = float(((f0c > 0) == (f0h > 0)).mean())
+    both = (f0c > 0) & (f0h > 0)
+    sp_db = np.abs(10 * np.log10(fc["sp"].cpu().numpy()[both])
+                   - 10 * np.log10(fh["sp"].numpy()[both]))
+    say(f"world: features card vs CPU ({len(f0c)} frames): voicing agrees on {agree:.4f} (limit "
+        f">= 0.99), sp on frames voiced in both: median {np.median(sp_db):.3g} dB (limit 0.05), "
+        f"max {sp_db.max():.3g} dB; ap rel L2 {rel_l2(fc['ap'].cpu(), fh['ap']):.3g}")
+    if agree < 0.99 or np.median(sp_db) > 0.05:
+        fail("world: card and CPU analyses disagree")
+    small = build_standin_corpus(os.path.join(root, "world_small"), n_pairs=3)
+    scfg = load_config(overrides=["data.tar=TF1", "misc.nb_file=3", "nmf.max_iter=20",
+                                  "data.use_stft=false"])
+    runs = {str(d): convert_utterance(scfg, ArtifactStore(os.path.join(root, f"ws_{d.type}")),
+                                      small[0], small[1], nb_file=3, device=d)
+            for d in (dev, torch.device("cpu"))}
+    g, c = runs[str(dev)], runs["cpu"]
+    errs = {name: rel_l2(g.converted[name].cpu(), c.converted[name]) for name in ("sp", "ap")}
+    say(f"world: small input (3 pairs, 20 MU iterations) card vs CPU: converted rel L2 {errs} "
+        f"(limit 1e-3), n_iter {g.n_iter}/{c.n_iter}")
+    if max(errs.values()) > 1e-3:
+        fail("world: card and CPU conversions disagree")
+
+    # the levers: Harvest; the magnitude-domain sp solve without the residual
+    for over in (["world.f0_method=harvest"],
+                 ["world.sp_domain=magnitude", "nmf.use_residual=off"]):
+        c = load_config(overrides=base + over)
+        syncs0 = dio.extend_from_candidates.syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = convert(f"world_{over[0]}", c=c, reference_wav=tar)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not np.isfinite(r.audio).all() or not np.isfinite(r.mcd_vs_reference):
+            fail(f"world {over}: audio or MCD not finite")
+        say(f"world {over}: first run {ms:.2f} ms, n_iter sp/ap {r.solves['sp'][3]}/"
+            f"{r.solves['ap'][3]}, relaxation syncs {dio.extend_from_candidates.syncs - syncs0}, "
+            f"stand-in MCD {r.mcd_vs_reference:.4f} dB")
+
+    # the WORLD Converter: convert, and convert_batch of two (one by one)
+    paths = [src, os.path.join(data, "SF1", sorted(os.listdir(os.path.join(data, "SF1")))[0])]
+    conv = Converter(cfg, ArtifactStore(os.path.join(root, "world0")), data, nb_file=8,
+                     device=dev)
+    one = conv.convert(src)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conv.convert(src)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    batch = conv.convert_batch(paths)
+    singles = [conv.convert(p) for p in paths]
+    e_b = max(rel_l2(b.audio, s1.audio) for b, s1 in zip(batch, singles))
+    say(f"world: Converter prepare_seconds {conv.prepare_seconds:.4f} (the cold run's store), "
+        f"convert n_iter {one.nmf_iters}, warm wall {[round(w, 2) for w in walls]} ms, median "
+        f"{statistics.median(walls):.4f} ms; convert_batch of 2 against single conversions: "
+        f"rel L2 {e_b:.3g} (limit 1e-5)")
+    if e_b > 1e-5 or not all(np.isfinite(b.audio).all() for b in batch):
+        fail("world: a convert_batch item differs from its single conversion")
+    return launches
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1186,13 +1488,14 @@ def main() -> None:
         launches.update(phase_fused_path(torch, np, dev, root, corpus, fused))
         serving = phase_serving(torch, np, dev, root, corpus[0], counted, fused, default_mcd)
         phase_small_agreement(torch, np, dev, root)
+        world = phase_world(torch, np, dev, root, corpus, counted, fused)
     if "jax" in sys.modules:
         fail("jax was imported")
 
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
-         "launches_serving": serving[name],
+         "launches_serving": serving[name], "launches_world": world[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"]}

@@ -10,7 +10,10 @@ codes and paths with vectorised torch ops.
 The wavefront kernel is a systolic sweep: each lane of a warp owns R
 consecutive rows (1, or 8 above 4096 rows) and the warps of one pair form a
 chain through the CTAs of a thread-block cluster; :func:`dtw_wavefront_plan`
-(pure Python) chooses R, the cluster size and the warps a CTA.
+(pure Python) chooses R, the cluster size and the warps a CTA. A source
+longer than one plan's reach (``MAX_TA`` rows) runs as row bands of at most
+``MAX_TA`` rows, one launch a band in order, each handing its last row's
+costs to the next (``band_rows``; the twin takes the same bands).
 
 Direction codes: 0 = diag (i-1, j-1), 1 = up (i-1, j), 2 = left (i, j-1);
 tie order diag < up < left. Layout: ``dirs[n, d, i]`` with ``d = i + j``.
@@ -21,7 +24,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from exemplars_vc_tpu_torch.kernels.build import check, load_library
 
@@ -33,16 +35,31 @@ DTW_MAX_WARPS = 16           # warps a CTA
 # eight rows a lane (4-step chunks, for their registers) the rest
 DTW_ONE_ROW_MAX_TA = DTW_MAX_CLUSTER * DTW_MAX_WARPS * 32
 DTW_CHUNK = {1: 16, 8: 4}
-# the longest source the wrappers take: the reach of the widest plan, 8 CTAs
-# x 16 warps x 32 lanes x 8 rows = 32,768 frames (the kernel keeps no
-# Ta-sized buffer); longer sources wait for the long DTW
+# the most rows one launch sweeps: the reach of the widest plan, 8 CTAs x 16
+# warps x 32 lanes x 8 rows = 32,768 frames (the kernel keeps no Ta-sized
+# buffer); a longer source runs as bands of at most this many rows
 MAX_TA = DTW_ONE_ROW_MAX_TA * 8
 
 
 def fits_plan(ta: int) -> bool:
-    """Whether the wavefront kernel takes a source length of ``ta`` frames
-    (the counterpart of ``dtw_pallas.fits_vmem``)."""
+    """Whether one launch of the wavefront kernel sweeps ``ta`` rows (the
+    counterpart of ``dtw_pallas.fits_vmem``); longer sources run in bands."""
     return 1 <= ta <= MAX_TA
+
+
+def row_bands(ta: int, band_rows: int = MAX_TA) -> list[tuple[int, int]]:
+    """The row bands [i0, i1) of a source of ``ta`` frames: ``band_rows``
+    rows each, the last one shorter. Raises ValueError for a band height
+    outside ``1..MAX_TA``."""
+    if not fits_plan(band_rows):
+        raise ValueError(f"dtw_wavefront: band_rows={band_rows} is outside 1..{MAX_TA}")
+    return [(i0, min(i0 + band_rows, ta)) for i0 in range(0, ta, band_rows)]
+
+
+def _band_diagonals(ta: int, tb: int, i0: int, i1: int) -> int:
+    """Diagonals a band sweeps: its rows' cells up to column tb, whose codes
+    depend on the data (one past the last cell), within the Ta + Tb - 1."""
+    return min(i1 - i0 + tb, ta + tb - 1 - i0)
 
 
 def dtw_wavefront_plan(n: int, ta: int, n_sms: int) -> dict:
@@ -91,83 +108,123 @@ def _check_lens(lens: torch.Tensor, n: int, ta: int, tb: int, device,
 # wavefront DP
 # ---------------------------------------------------------------------------
 
-def dtw_wavefront_plain(C: torch.Tensor, lens: torch.Tensor):
-    """Plain twin of the wavefront kernel: one vectorised step per diagonal.
-
-    C: (N, Ta, Tb) f32 pairwise costs; lens: (N, 2) int32 [len_a, len_b].
-    Returns (raw cost (N,) f32, dirs (N, Ta+Tb-1, Ta) int8)."""
+def _plain_band(C: torch.Tensor, lens: torch.Tensor, i0: int, i1: int, top, dirs, final):
+    """One row band [i0, i1) of the twin, in the band's own indices (i' =
+    i - i0, d' = d - i0, j = d' - i'): ``top`` (N, Tb) holds row i0-1's costs
+    (None for the first band), the codes go to ``dirs[:, i0 + d', i0:i1]``,
+    ``final`` takes the cost of the pairs whose row la-1 is in the band.
+    Returns the band's last row's costs (N, Tb)."""
     n, ta, tb = C.shape
-    n_diag = ta + tb - 1
+    rows = i1 - i0
     dev = C.device
-    la = lens[:, 0].long()
+    la_band = lens[:, 0].long() - i0
+    has_end = (la_band >= 1) & (la_band <= rows)
+    la = la_band.clamp(0, rows)
     lb = lens[:, 1].long()
-    i_idx = torch.arange(ta, device=dev)
+    i_idx = torch.arange(rows, device=dev)
     ar = torch.arange(n, device=dev)
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
     rows_ok = i_idx[None, :] < la[:, None]
-    end_d = la + lb - 2
-    prev = torch.full((n, ta), BIG, dtype=torch.float32, device=dev)
+    end_d = la_band + lb - 2
+    Cb = C[:, i0:i1]
+    prev = torch.full((n, rows), BIG, dtype=torch.float32, device=dev)
     prev2 = prev.clone()
-    final = torch.full((n,), BIG, dtype=torch.float32, device=dev)
-    dirs = torch.empty((n, n_diag, ta), dtype=torch.int8, device=dev)
-    for d in range(n_diag):
+    big_col = torch.full((n, 1), BIG, dtype=torch.float32, device=dev)
+    last = torch.full((n, tb), BIG, dtype=torch.float32, device=dev)
+    for d in range(_band_diagonals(ta, tb, i0, i1)):
         j = d - i_idx
-        c = C[:, i_idx, j.clamp(0, tb - 1)]
+        c = Cb[:, i_idx, j.clamp(0, tb - 1)]
         c = torch.where((j >= 0)[None, :] & (j[None, :] < lb[:, None]) & rows_ok, c, big)
         left = torch.where((j >= 1)[None, :], prev, big)
-        up = F.pad(prev[:, :-1], (1, 0), value=BIG)
-        dg = torch.where((j >= 1)[None, :], F.pad(prev2[:, :-1], (1, 0), value=BIG), big)
+        # row i0-1 at the step before (up, column d) and the one before that (diag)
+        up_head = top[:, d:d + 1] if top is not None and d < tb else big_col
+        dg_head = top[:, d - 1:d] if top is not None and 1 <= d <= tb else big_col
+        up = torch.cat([up_head, prev[:, :-1]], dim=1)
+        dg = torch.where((j >= 1)[None, :], torch.cat([dg_head, prev2[:, :-1]], dim=1), big)
         best = torch.minimum(torch.minimum(dg, up), left)
         choice = torch.where(best == dg, 0, torch.where(best == up, 1, 2))
-        if d == 0:
+        if d == 0 and i0 == 0:
             best[:, 0] = 0.0
         new = torch.clamp(c + torch.clamp(best, max=BIG), max=BIG)
         new = torch.where((j >= 0)[None, :], new, big)
-        dirs[:, d] = choice.to(torch.int8)
-        final = torch.where(end_d == d, new[ar, la - 1], final)
+        dirs[:, i0 + d, i0:i1] = choice.to(torch.int8)
+        final.copy_(torch.where(has_end & (end_d == d), new[ar, (la - 1).clamp(min=0)], final))
+        if 0 <= d - (rows - 1) < tb:
+            last[:, d - (rows - 1)] = new[:, rows - 1]
         prev2, prev = prev, new
+    return last
+
+
+def dtw_wavefront_plain(C: torch.Tensor, lens: torch.Tensor, band_rows: int | None = None):
+    """Plain twin of the wavefront kernel: one vectorised step per diagonal.
+
+    C: (N, Ta, Tb) f32 pairwise costs; lens: (N, 2) int32 [len_a, len_b].
+    Returns (raw cost (N,) f32, dirs (N, Ta+Tb-1, Ta) int8). ``band_rows``
+    sweeps the rows in bands of that many, as the kernel does past
+    ``MAX_TA`` rows (default: one band of every row); the result is the
+    same to the byte."""
+    n, ta, tb = C.shape
+    bands = [(0, ta)] if band_rows is None else row_bands(ta, band_rows)
+    alloc = torch.zeros if len(bands) > 1 else torch.empty
+    dirs = alloc((n, ta + tb - 1, ta), dtype=torch.int8, device=C.device)
+    final = torch.full((n,), BIG, dtype=torch.float32, device=C.device)
+    top = None
+    for i0, i1 in bands:
+        top = _plain_band(C, lens, i0, i1, top, dirs, final)
     return final, dirs
 
 
-def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor, lens_host=None):
+def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor, lens_host=None, *,
+                  band_rows: int = MAX_TA):
     """Batched wavefront DP; same contract as :func:`dtw_wavefront_plain`.
     ``lens_host``: the caller's host copy of ``lens`` for the range check
     (:func:`_check_lens`), which spares the launch a device sync.
 
-    On a CUDA tensor this launches ``evc_dtw_wavefront`` with the
-    :func:`dtw_wavefront_plan` of this card and counts the launch in
-    ``dtw_wavefront.launches``; the C entry refuses a plan that does not
-    cover Ta, and the call raises."""
+    On a CUDA tensor this launches ``evc_dtw_wavefront`` once a row band of
+    at most ``band_rows`` rows (one band up to ``MAX_TA`` rows by default),
+    in order, each with the :func:`dtw_wavefront_plan` of its rows on this
+    card, and counts each launch in ``dtw_wavefront.launches``. Several
+    bands zero the codes first (a band writes only its own rows' diagonals
+    up to column Tb) and hand each band's last row to the next through a
+    buffer. The C entry refuses a plan that does not cover the band, and
+    the call raises. A CPU tensor takes the twin with the same bands."""
     if C.device.type == "cpu":
-        return dtw_wavefront_plain(C, lens)
+        return dtw_wavefront_plain(C, lens, band_rows)
     if C.device.type != "cuda":
         raise ValueError(f"dtw_wavefront: unsupported device {C.device}")
     if C.dtype != torch.float32 or C.dim() != 3 or not C.is_contiguous():
         raise ValueError(f"C must be contiguous float32 (N, Ta, Tb), got "
                          f"{C.dtype} {tuple(C.shape)}")
     n, ta, tb = C.shape
-    if not fits_plan(ta):
-        raise ValueError(f"dtw_wavefront: Ta={ta} is more than {MAX_TA} frames, the reach of "
-                         f"the widest plan (8 CTAs x 16 warps x 32 lanes x 8 rows); longer "
-                         f"sources wait for the long DTW (ROADMAP queue 1 item 12)")
+    bands = row_bands(ta, band_rows)
     _check_lens(lens, n, ta, tb, C.device, lens_host)
-    plan = dtw_wavefront_plan(n, ta, torch.cuda.get_device_properties(C.device)
-                              .multi_processor_count)
+    n_sms = torch.cuda.get_device_properties(C.device).multi_processor_count
     lib = load_library("dtw_wavefront")
     fn = lib.evc_dtw_wavefront
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 6, ctypes.c_void_p,
+                   ctypes.c_void_p, *[ctypes.c_int] * 4, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
     cost = torch.empty((n,), dtype=torch.float32, device=C.device)
-    dirs = torch.empty((n, ta + tb - 1, ta), dtype=torch.int8, device=C.device)
+    alloc = torch.zeros if len(bands) > 1 else torch.empty
+    dirs = alloc((n, ta + tb - 1, ta), dtype=torch.int8, device=C.device)
+    # the rows handed between bands: 16-byte aligned rows of tb + 4 floats at
+    # least, BIG past column tb
+    bstride = -(-(tb + 4) // 16) * 16
+    edges = (torch.full((2, n, bstride), BIG, dtype=torch.float32, device=C.device)
+             if len(bands) > 1 else None)
     with torch.cuda.device(C.device):
         stream = torch.cuda.current_stream(C.device).cuda_stream
-        code = fn(C.data_ptr(), lens.data_ptr(), n, ta, tb, plan["rows_per_lane"],
-                  plan["cluster"], plan["warps_per_cta"], cost.data_ptr(), dirs.data_ptr(),
-                  stream)
-    check(code, "dtw_wavefront", lib)
-    dtw_wavefront.launches += 1
+        for b, (i0, i1) in enumerate(bands):
+            plan = dtw_wavefront_plan(n, i1 - i0, n_sms)
+            b_in = edges[b % 2].data_ptr() if b > 0 else None
+            b_out = edges[(b + 1) % 2].data_ptr() if b + 1 < len(bands) else None
+            code = fn(C.data_ptr(), lens.data_ptr(), n, ta, tb, i0, i1 - i0,
+                      _band_diagonals(ta, tb, i0, i1), b_in, b_out, bstride,
+                      plan["rows_per_lane"], plan["cluster"], plan["warps_per_cta"],
+                      cost.data_ptr(), dirs.data_ptr(), stream)
+            check(code, "dtw_wavefront", lib)
+            dtw_wavefront.launches += 1
     return cost, dirs
 
 

@@ -63,7 +63,23 @@
 // 16-step chunks at R = 1 took ~6 % off the 8-step ones; 32-step ones were
 // slower (the chain's fill, ~44 warps x a chunk, grows with the chunk).
 // Two variants are compiled: R = 1 covers Ta up to 8 CTAs x 16 warps x 32
-// lanes = 4096, R = 8 up to 32,768 (2, 4 rows a lane were slower).
+// lanes = 4096, R = 8 up to 32,768 (2, 4 rows a lane were slower), each
+// with and without the row-band boundaries below (BAND).
+//
+// Row bands. A launch sweeps the rows [row0, row0 + rows) of the pair; a
+// longer source runs as bands of at most 32,768 rows, one launch a band, in
+// order. Inside a band every index is local (i' = i - row0, d' = d - row0,
+// so j = d' - i' as before). The band's first lane reads row row0-1's costs
+// (one float a column j, BIG from j = tb on) from `bin` where the chain's
+// head would otherwise see BIG, one chunk ahead in registers; the lane that
+// holds the band's last row writes that row's costs to `bout` for the next
+// band. A band sweeps rows + tb diagonals (one past its own rows' last cell:
+// the codes of column j = tb depend on the data), and writes its codes into
+// the full (Ta+Tb-1, Ta) buffer at dirs[row0 + d', row0 + i'] with the row
+// stride Ta; the codes a band leaves alone are those of cells with j < 0 or
+// j > tb, all three neighbours BIG, code 0, which the caller zeroes once.
+// The final cost is written by the band that holds row la-1 only. Code
+// offsets are 64-bit throughout: past 32,768 rows the codes pass 2^31 bytes.
 //
 // The backtrace walks the path once, from (la-1, lb-1) to the origin, with
 // one CTA a pair. The codes it reads are staged into shared memory a window
@@ -180,7 +196,7 @@ struct DtwShared {
 // chunk is the last block of the chunk before, so a chunk costs K/4 vector
 // loads a row, issued one chunk before use; the K values are picked out by
 // the row's alignment phase (constant along the row, as K % 4 == 0).
-template <int R, int K>
+template <int R, int K, bool BAND>
 struct DtwLane {
   static_assert(K % 4 == 0 && K <= EVC_DTW_MAX_K, "chunk");
   static_assert(R == 1 || R == 8, "rows a lane");
@@ -188,6 +204,14 @@ struct DtwLane {
   const float* Cn;
   int8_t* dn;
   int ta, tb, la, lb, n_diag, end_d, i0, lane, warp;
+  int rows;                 // rows of this band
+  int row0;                 // global index of the band's first row
+  bool vec16;               // the codes of a diagonal start 16-byte aligned
+  const float* bin;         // row row0-1's costs, read by the chain's head lane (or null)
+  float4 bq[BAND ? K / 4 : 1];   // its next chunk, in flight
+  int out_r;                // the row of this lane that is the band's last, with bout set, or -1
+  bool out_warp;            // this warp holds the band's last row and bout is set
+  float* bout;              // where the band's last row's costs go (or null)
   int end_r;                // the row of this lane that is la-1, or -1
   float final_cost;         // row la-1 at diagonal end_d, once swept
   float last_in;            // the producer's last row at the step before this chunk
@@ -223,7 +247,7 @@ struct DtwLane {
     for (int r = 0; r < R; ++r) {
       const int i = i0 + r;
       v[r] = EVC_BIG;
-      u[r] = (i == 0) ? 0.0f : EVC_BIG;   // the origin's diag: best = 0, code 0
+      u[r] = (row0 + i == 0) ? 0.0f : EVC_BIG;   // the origin's diag: best = 0, code 0
       rowp[r] = Cn + (size_t)i * tb;
       phi[r] = (int)((reinterpret_cast<uintptr_t>(rowp[r]) >> 2) & 3);
       elem[r] = (phi[r] - i) & 3;   // chunks start on multiples of 4
@@ -247,6 +271,12 @@ struct DtwLane {
         if (block_ok(i, jb + 4 * b)) nb[r][b - 1] = evc_ld_v4(rowp[r] + jb + 4 * b);
       const int jp = jb + 2 * K;
       if (block_ok(i, jp)) evc_prefetch_l2(rowp[r] + jp);
+    }
+    if (BAND && bin != nullptr) {   // the band's head lane: row row0-1 at columns d0 ..
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q)
+        bq[q] = d0 + 4 * q < tb ? evc_ld_v4(bin + d0 + 4 * q)
+                                : make_float4(EVC_BIG, EVC_BIG, EVC_BIG, EVC_BIG);
     }
   }
 
@@ -277,8 +307,6 @@ struct DtwLane {
   // barrier that ends it (a warp of this CTA), or from link_buf once the
   // link's barrier has counted its bytes (the last warp of the CTA before).
   __device__ __forceinline__ void inbound(int d0, float (&rin)[K]) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) rin[k] = EVC_BIG;
     const int c = d0 / K;
     const float* buf = nullptr;
     if (prod_pair) {
@@ -328,9 +356,12 @@ struct DtwLane {
   __device__ __forceinline__ void chunk(int d0) {
     float c[R][K];
     extract(d0, c);
+    float rin[K];   // the producer's last row; for the band's head, row row0-1
+#pragma unroll
+    for (int k = 0; k < K; ++k) rin[k] = (BAND && bin != nullptr) ? evc_f4(bq[k / 4], k % 4) : EVC_BIG;
     fetch(d0 + K);
-    float rin[K];
     inbound(d0, rin);
+    float ost[K];   // the band's last row, for bout
     const unsigned pair_out =
         (unsigned)__cvta_generic_to_shared(&sh->pair_buf[warp][(d0 / K) & 1][0]);
     const bool pair_lane = cons_pair && lane == 31;
@@ -356,6 +387,12 @@ struct DtwLane {
         pack |= code << (8 * r);
         if (EDGE) final_cost = (r == end_r && d == end_d) ? v[r] : final_cost;
       }
+      if (BAND && out_warp) {   // warp-uniform
+        float o = EVC_BIG;
+#pragma unroll
+        for (int r = 0; r < R; ++r) o = r == out_r ? v[r] : o;
+        ost[k] = o;
+      }
       uint8_t* st = stage + k * 32 * R + lane * R;
       if (R == 1) *st = (uint8_t)pack;
       if (R == 8) *reinterpret_cast<unsigned long long*>(st) = pack;
@@ -363,6 +400,13 @@ struct DtwLane {
       evc_st_async_if(link_buf + 4 * k, __float_as_uint(v[R - 1]), link_full, link_lane);
     }
     if (cons_pair) evc_pair_sync(warp + 1);   // this chunk is in pair_buf for warp + 1
+    if (BAND && out_warp && out_r >= 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = d0 + k - (rows - 1);
+        if (j >= 0 && j < tb) bout[j] = ost[k];
+      }
+    }
     flush<EDGE>(d0);
   }
 
@@ -375,9 +419,9 @@ struct DtwLane {
   __device__ __forceinline__ void flush(int d0) {
     __syncwarp();
     const int ibase = 32 * R * g;
-    const int w = min(32 * R, ta - ibase);   // rows of this warp below ta
+    const int w = min(32 * R, rows - ibase);   // rows of this warp inside the band
     int8_t* row0 = dn + (size_t)d0 * ta + ibase;
-    if (ta % 16 == 0) {
+    if (vec16) {
       constexpr int NV = 2 * R;   // 16-byte vectors a diagonal
 #pragma unroll
       for (int t = lane; t < K * NV; t += 32) {
@@ -415,10 +459,12 @@ struct DtwLane {
   }
 };
 
-template <int R, int K>
+template <int R, int K, bool BAND>
 __global__ void __launch_bounds__(EVC_DTW_MAX_WARPS * 32)
     dtw_wavefront_kernel(const float* __restrict__ C, const int* __restrict__ lens, int ta,
-                         int tb, float* __restrict__ cost, int8_t* __restrict__ dirs) {
+                         int tb, int row0, int rows, int n_diag, const float* __restrict__ bin,
+                         float* __restrict__ bout, int bstride, float* __restrict__ cost,
+                         int8_t* __restrict__ dirs) {
   __shared__ DtwShared sh;
   __shared__ __align__(16) uint8_t stage[EVC_DTW_MAX_WARPS][K * 32 * R];
   cg::cluster_group cluster = cg::this_cluster();
@@ -428,7 +474,7 @@ __global__ void __launch_bounds__(EVC_DTW_MAX_WARPS * 32)
   const int warp = (int)(threadIdx.x >> 5);
   const int n = blockIdx.x / csize;
   const int g = rank * wpc + warp;                 // place in the pair's warp chain
-  const int n_warps = (ta + 32 * R - 1) / (32 * R);
+  const int n_warps = (rows + 32 * R - 1) / (32 * R);
   if (threadIdx.x == 0) {
     // one arrival a phase (the owner's re-arm) plus the bytes of the phase
     for (int b = 0; b < EVC_DTW_LINK_BUFS; ++b) {
@@ -442,21 +488,33 @@ __global__ void __launch_bounds__(EVC_DTW_MAX_WARPS * 32)
   cluster.sync();   // every CTA's barriers are set before a peer signals them
 
   if (g < n_warps) {
-    DtwLane<R, K> s;
+    DtwLane<R, K, BAND> s;
     s.ta = ta;
     s.tb = tb;
-    s.la = lens[2 * n];
+    s.rows = rows;
+    s.row0 = row0;
+    // lengths relative to the band: rows from la on cost BIG; the final cost
+    // is this band's only where it holds row la-1
+    const int la_band = lens[2 * n] - row0;
+    s.la = min(max(la_band, 0), rows);
     s.lb = lens[2 * n + 1];
-    s.n_diag = ta + tb - 1;
-    s.end_d = s.la + s.lb - 2;
+    s.n_diag = n_diag;
+    const bool has_end = la_band >= 1 && la_band <= rows;
+    s.end_d = has_end ? la_band + s.lb - 2 : -1;
     s.lane = (int)(threadIdx.x & 31);
     s.warp = warp;
     s.i0 = (g * 32 + s.lane) * R;
-    s.Cn = C + (size_t)n * ta * tb;
-    s.dn = dirs + (size_t)n * s.n_diag * ta;
+    s.Cn = C + (size_t)n * ta * tb + (size_t)row0 * tb;
+    s.dn = dirs + (size_t)n * (ta + tb - 1) * ta + (size_t)row0 * ta + row0;
+    s.vec16 = ta % 16 == 0 && row0 % 16 == 0;
     s.g = g;
     s.stage = stage[warp];
-    s.end_r = (s.la - 1 >= s.i0 && s.la - 1 < s.i0 + R) ? s.la - 1 - s.i0 : -1;
+    s.end_r = (has_end && la_band - 1 >= s.i0 && la_band - 1 < s.i0 + R) ? la_band - 1 - s.i0
+                                                                         : -1;
+    s.bin = (bin != nullptr && g == 0 && s.lane == 0) ? bin + (size_t)n * bstride : nullptr;
+    s.out_warp = bout != nullptr && (rows - 1) / (32 * R) == g;
+    s.out_r = (s.out_warp && rows - 1 >= s.i0 && rows - 1 < s.i0 + R) ? rows - 1 - s.i0 : -1;
+    s.bout = bout != nullptr ? bout + (size_t)n * bstride : nullptr;
     s.final_cost = EVC_BIG;
     s.last_in = EVC_BIG;
     s.prod_pair = g > 0 && warp > 0;
@@ -468,6 +526,8 @@ __global__ void __launch_bounds__(EVC_DTW_MAX_WARPS * 32)
     s.peer_full = s.cons_link ? evc_mapa(evc_smem(&sh.full[0]), rank + 1) : 0u;
     s.peer_sink = s.prod_link ? evc_mapa(evc_smem(&sh.sink), rank - 1) : 0u;
     s.peer_empty = s.prod_link ? evc_mapa(evc_smem(&sh.empty[0]), rank - 1) : 0u;
+    if (BAND)
+      for (int q = 0; q < K / 4; ++q) s.bq[q] = make_float4(EVC_BIG, EVC_BIG, EVC_BIG, EVC_BIG);
     s.init_rows();
     s.fetch(0);
     // chunks where the warp's last row has started, before the last diagonal
@@ -637,10 +697,11 @@ __global__ void __launch_bounds__(EVC_BT_THREADS)
   if (t == 0) path_len[n] = len;
 }
 
-template <int R, int K>
+template <int R, int K, bool BAND>
 static cudaError_t evc_launch_wavefront(const float* C, const int* lens, int n, int ta, int tb,
-                                        int cluster, int warps, float* cost, int8_t* dirs,
-                                        cudaStream_t stream) {
+                                        int row0, int rows, int n_diag, const float* bin,
+                                        float* bout, int bstride, int cluster, int warps,
+                                        float* cost, int8_t* dirs, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -653,7 +714,8 @@ static cudaError_t evc_launch_wavefront(const float* C, const int* lens, int n, 
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, dtw_wavefront_kernel<R, K>, C, lens, ta, tb, cost, dirs);
+  return cudaLaunchKernelEx(&cfg, dtw_wavefront_kernel<R, K, BAND>, C, lens, ta, tb, row0, rows,
+                            n_diag, bin, bout, bstride, cost, dirs);
 }
 
 extern "C" {
@@ -662,31 +724,52 @@ const char* evc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// C (n, ta, tb) f32, lens (n, 2) i32 -> cost (n,) f32, dirs (n, ta+tb-1, ta) i8.
-// The plan: rows a lane (1 or 8), CTAs a pair's cluster (1..8), warps
-// a CTA (1..16), covering at least ta rows; any other plan is refused
-// (cudaErrorInvalidValue) before a launch.
-int evc_dtw_wavefront(const float* C, const int* lens, int n, int ta, int tb, int rows_per_lane,
+// C (n, ta, tb) f32, lens (n, 2) i32 -> cost (n,) f32, dirs (n, ta+tb-1, ta) i8,
+// for the band of rows [row0, row0 + rows) and its n_diag diagonals (all of
+// ta + tb - 1 for one band of every row). bin, bout: (n, bstride) f32, the
+// costs of row row0-1 and of the band's last row (null for the first and the
+// last band); bstride covers tb + 4 and keeps rows 16-byte aligned. The
+// plan: rows a lane (1 or 8), CTAs a pair's cluster (1..8), warps a CTA
+// (1..16), covering at least the band's rows; any other plan or band is
+// refused (cudaErrorInvalidValue) before a launch.
+int evc_dtw_wavefront(const float* C, const int* lens, int n, int ta, int tb, int row0, int rows,
+                      int n_diag, const float* bin, float* bout, int bstride, int rows_per_lane,
                       int cluster, int warps, float* cost, int8_t* dirs, void* stream) {
   if (n < 1 || ta < 1 || tb < 1 || cluster < 1 || cluster > EVC_DTW_MAX_CLUSTER || warps < 1 ||
-      warps > EVC_DTW_MAX_WARPS ||
-      (long long)cluster * warps * 32 * rows_per_lane < (long long)ta)
+      warps > EVC_DTW_MAX_WARPS || row0 < 0 || rows < 1 || (long long)row0 + rows > ta ||
+      n_diag < 1 || (long long)row0 + n_diag > (long long)ta + tb - 1 ||
+      (long long)cluster * warps * 32 * rows_per_lane < (long long)rows ||
+      ((bin != nullptr || bout != nullptr) && (bstride < tb + 4 || bstride % 4 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // a band with a neighbour runs the variant that reads and writes the
+  // boundary rows; one band of every row keeps the registers it had before
+  const bool band = bin != nullptr || bout != nullptr;
   cudaError_t e;
-  switch (rows_per_lane) {
-    case 1: e = evc_launch_wavefront<1, 16>(C, lens, n, ta, tb, cluster, warps, cost, dirs, s); break;
-    case 8: e = evc_launch_wavefront<8, 4>(C, lens, n, ta, tb, cluster, warps, cost, dirs, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (rows_per_lane == 1)
+    e = band ? evc_launch_wavefront<1, 16, true>(C, lens, n, ta, tb, row0, rows, n_diag, bin,
+                                                 bout, bstride, cluster, warps, cost, dirs, s)
+             : evc_launch_wavefront<1, 16, false>(C, lens, n, ta, tb, row0, rows, n_diag, bin,
+                                                  bout, bstride, cluster, warps, cost, dirs, s);
+  else if (rows_per_lane == 8)
+    e = band ? evc_launch_wavefront<8, 4, true>(C, lens, n, ta, tb, row0, rows, n_diag, bin,
+                                                bout, bstride, cluster, warps, cost, dirs, s)
+             : evc_launch_wavefront<8, 4, false>(C, lens, n, ta, tb, row0, rows, n_diag, bin,
+                                                 bout, bstride, cluster, warps, cost, dirs, s);
+  else
+    return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // dirs (n, ta+tb-1, ta) i8, lens (n, 2) i32 -> ascending paths (n, ta+tb-1)
 // i32 padded with -1, path_len (n,) i32.
+// Any Ta: the walk's offsets into the codes are 64-bit, and a path has at
+// most ta + tb - 1 cells, which must fit an int.
 int evc_dtw_backtrace(const int8_t* dirs, const int* lens, int n, int ta, int tb, int* path_i,
                       int* path_j, int* path_len, void* stream) {
+  if (n < 1 || ta < 1 || tb < 1 || (long long)ta + tb - 1 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   // the opt-in to more than 48 KB of shared memory is a setting of the
   // current device: made on every call, so any card and any thread has it
   const cudaError_t e = cudaFuncSetAttribute(

@@ -1,20 +1,22 @@
-"""Exemplar conversion of one utterance, STFT path (port of
+"""Exemplar conversion of one utterance (port of
 ``exemplars_vc_tpu/pipelines/convert.py``).
 
 1. build the exemplar dictionaries A (source) / B (target) along the DTW
    paths (:func:`_aligned_dicts`: hop divisor, alignment pruning, VTLP
    augmentation; memoised in the process),
-2. solve the activations of the input's |STFT| over A
+2. solve the activations of each of the input's features over its A
    (:func:`_solve_activations`: mel domain, context stacking, unit-norm
    atoms, the configured solver, top-k refinement, sharpening, the temporal
-   box filter),
-3. convert Y = H·B,
-4. resynthesize with Griffin-Lim seeded with the input's own phase,
+   box filter): the |STFT| (``data.use_stft``, the default), or WORLD's sp
+   and ap, with f0 mapped by :func:`convert_f0_logmv`,
+3. convert Y = H·B (on the WORLD path times the residual R by default),
+4. resynthesize: Griffin-Lim seeded with the input's own phase, or the
+   WORLD synthesizer,
 5. optionally score the DTW-aligned MCD against a reference utterance.
 
-Every lever of the STFT path runs. The WORLD path and the sharded solver
-raise ``NotImplementedError`` naming their ROADMAP item. The entry points run
-on the card (``device="cuda"``) unless the caller passes ``device="cpu"``;
+Every lever of both paths runs; the sharded solver raises
+``NotImplementedError`` naming its ROADMAP item. The entry points run on
+the card (``device="cuda"``) unless the caller passes ``device="cpu"``;
 without a card the default raises.
 """
 
@@ -52,8 +54,10 @@ from exemplars_vc_tpu_torch.obs.profiling import Timer
 from exemplars_vc_tpu_torch.pipelines.conv_dicts import (
     build_conversion_dicts_pair,
     extract_stft_complex,
+    extract_world_features,
 )
 from exemplars_vc_tpu_torch.pipelines.make_dict import make_dictionary
+from exemplars_vc_tpu_torch.world.synthesis import synthesize
 
 log = logging.getLogger("exemplars_vc_tpu_torch")
 
@@ -67,13 +71,14 @@ class ConversionResult:
     nmf_error: float
     timings: dict[str, float] = field(default_factory=dict)
     mcd_vs_reference: float | None = None
-    nmf_shape: tuple[int, int, int] = (0, 0, 0)   # (F, K, D) of the solve
+    nmf_shape: tuple[int, int, int] = (0, 0, 0)   # (F, K, D) of the first solve
+    # each solve by feature name: (F, K, D, n_iter)
+    solves: dict[str, tuple[int, int, int, int]] = field(default_factory=dict)
 
 
 def _check_slice(cfg: Config) -> None:
     """Raise for the levers that are not ported."""
     unported = [
-        (not cfg.data.use_stft, "data.use_stft=False (WORLD path)", 10),
         (cfg.nmf.solver == "mu_sharded", "nmf.solver='mu_sharded'", 12),
     ]
     for bad, what, item in unported:
@@ -196,6 +201,57 @@ def _dispatch_solver(X: torch.Tensor, A: torch.Tensor, cfg: Config) -> NmfState:
         H = torch.clamp(qr_activations(X, A), min=0.0)
         return NmfState(H, 1, torch.linalg.norm(X - H @ A))
     raise ValueError(f"unknown nmf solver {solver!r}")
+
+
+def convert_f0_logmv(f0: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Source f0 (T, 1) → target f0 by a log-domain mean-variance
+    transform: lf0_tar = (lf0_src − μ_src)·(σ_tar/σ_src) + μ_tar on voiced
+    frames (unvoiced stays exactly 0), μ and σ over the voiced rows of the
+    aligned f0 dictionaries A (source) and B (target); their zero padding
+    rows are unvoiced, so they drop out."""
+    def stats(M):
+        v = M[:, 0]
+        mask = v > 0
+        n = torch.clamp(mask.sum(), min=1)
+        lf = torch.where(mask, torch.log(torch.clamp(v, min=1e-6)), torch.zeros_like(v))
+        mu = lf.sum() / n
+        var = torch.where(mask, (lf - mu) ** 2, torch.zeros_like(v)).sum() / n
+        return mu, torch.sqrt(torch.clamp(var, min=1e-12))
+
+    mu_s, sd_s = stats(A)
+    mu_t, sd_t = stats(B)
+    out = torch.exp((torch.log(torch.clamp(f0, min=1e-6)) - mu_s) * (sd_t / sd_s) + mu_t)
+    return torch.where(f0 > 0, out, torch.zeros_like(out))
+
+
+def _convert_features_of(X: dict, dicts: dict, cfg: Config, use_residual: bool):
+    """Solve and convert each input feature {name: (F, D)} over its
+    dictionary pair: f0 by :func:`convert_f0_logmv` (``world.f0_transform``
+    "logmv"), sp in the magnitude domain where ``world.sp_domain`` says so
+    (solved on √sp, the conversion squared back), the residual R on where
+    ``use_residual``. Returns ({name: Y}, {name: NmfState})."""
+    converted, states = {}, {}
+    for name, Xn in X.items():
+        A, B = dicts[name]
+        if name == "f0" and cfg.world.f0_transform == "logmv":
+            converted[name] = convert_f0_logmv(Xn, A, B)
+            continue
+        sp_mag = name == "sp" and cfg.world.sp_domain == "magnitude"
+        if sp_mag:
+            Xn, A, B = torch.sqrt(Xn), torch.sqrt(A), torch.sqrt(B)
+        st = _solve_activations(Xn, A, cfg)
+        R = (residual_compensation(Xn, st.H, A, mode=cfg.nmf.residual_mode)
+             if use_residual else None)
+        Y = convert_features(st.H, B, R)
+        converted[name] = Y * Y if sp_mag else Y
+        states[name] = st
+    return converted, states
+
+
+def world_synthesize(converted: dict, cfg: Config, sr: int) -> torch.Tensor:
+    """The WORLD synthesizer on converted {"f0": (F, 1), "sp", "ap"}."""
+    return synthesize(converted["f0"][:, 0], converted["sp"], converted["ap"], sr=sr,
+                      frame_period_ms=cfg.world.frame_period_ms, fft_size=cfg.world.fft_size)
 
 
 def _vtlp_matrix(D: int, alpha: float, dtype: torch.dtype, device: torch.device):
@@ -326,45 +382,56 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
                       *, device: str | torch.device = "cuda") -> ConversionResult:
     """Convert one utterance on ``device`` (see the module docstring).
 
-    ``sync_stages=True`` fences the device around each stage so the timings
-    ("dicts", "features", "nmf_solve", "synthesis") are device times;
-    otherwise a stage's queued work may drain inside a later one."""
+    ``use_residual`` defaults to the reference's rule: the residual
+    compensation on the WORLD path unless ``nmf.use_residual`` is "off",
+    never on the STFT path. ``sync_stages=True`` fences the device around
+    each stage so the timings ("dicts", "features", "nmf_solve",
+    "synthesis") are device times; otherwise a stage's queued work may
+    drain inside a later one."""
     device = resolve_device(device)
     _check_slice(cfg)
     timings: dict[str, float] = {}
     m = cfg.mcep
 
     with Timer(device, sync_stages) as t:
-        dicts, _ = _aligned_dicts(cfg, store, data_path, nb_file, device)
+        dicts, kind = _aligned_dicts(cfg, store, data_path, nb_file, device)
     timings["dicts"] = t.elapsed
 
     x, sr = read_wav(wav_path)
+    if use_residual is None:
+        use_residual = kind == "world" and cfg.nmf.use_residual != "off"
     with Timer(device, sync_stages) as t:
-        S_in = extract_stft_complex(x, cfg, device)
-        X = torch.abs(S_in)
+        if kind == "stft":
+            S_in = extract_stft_complex(x, cfg, device)
+            feats = {"stft": torch.abs(S_in)}
+        else:
+            feats = extract_world_features(x, cfg, device)
     timings["features"] = t.elapsed
 
     with Timer(device, sync_stages) as t:
-        A, B = dicts["stft"]
-        st = _solve_activations(X, A, cfg)
-        R = (residual_compensation(X, st.H, A, mode=cfg.nmf.residual_mode)
-             if use_residual else None)
-        Y = convert_features(st.H, B, R)
+        converted, states = _convert_features_of(feats, dicts, cfg, use_residual)
     timings["nmf_solve"] = t.elapsed
-    F, D = X.shape
-    K = A.shape[0]
-    log.info("NMF[stft]: F=%d K=%d D=%d iters=%d err=%.3g", F, K, D, st.n_iter,
-             float(st.error))
+    solves = {}
+    for name, st in states.items():
+        F, D = feats[name].shape
+        K = dicts[name][0].shape[0]
+        solves[name] = (F, K, D, st.n_iter)
+        log.info("NMF[%s]: F=%d K=%d D=%d iters=%d err=%.3g", name, F, K, D, st.n_iter,
+                 float(st.error))
 
     with Timer(device, sync_stages) as t:
-        iters = synth_iters if synth_iters is not None else cfg.nmf.griffin_lim_iters
-        if cfg.nmf.gl_init == "source":
-            y = griffin_lim(Y, n_fft=m.frame_length, hop_length=m.hop_length,
-                            n_iter=iters, length=len(x), init_phase=S_in)
+        if kind == "stft":
+            Y = converted["stft"]
+            iters = synth_iters if synth_iters is not None else cfg.nmf.griffin_lim_iters
+            if cfg.nmf.gl_init == "source":
+                y = griffin_lim(Y, n_fft=m.frame_length, hop_length=m.hop_length,
+                                n_iter=iters, length=len(x), init_phase=S_in)
+            else:
+                gen = torch.Generator(device=device).manual_seed(0)
+                y = griffin_lim(Y, n_fft=m.frame_length, hop_length=m.hop_length,
+                                n_iter=iters, length=len(x), generator=gen)
         else:
-            gen = torch.Generator(device=device).manual_seed(0)
-            y = griffin_lim(Y, n_fft=m.frame_length, hop_length=m.hop_length,
-                            n_iter=iters, length=len(x), generator=gen)
+            y = world_synthesize(converted, cfg, sr)
         audio = y.cpu().numpy()
     timings["synthesis"] = t.elapsed
 
@@ -376,7 +443,8 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
         mcd_val = mcd_between_signals(audio, ref_sig, cfg, device)
         log.info("MCD vs %s: %.2f dB", reference_wav, mcd_val)
 
-    return ConversionResult(audio=audio, sr=sr, converted={"stft": Y},
-                            n_iter=st.n_iter, nmf_error=float(st.error),
+    return ConversionResult(audio=audio, sr=sr, converted=converted,
+                            n_iter=sum(st.n_iter for st in states.values()),
+                            nmf_error=sum(float(st.error) for st in states.values()),
                             timings=timings, mcd_vs_reference=mcd_val,
-                            nmf_shape=(F, K, D))
+                            nmf_shape=next(iter(solves.values()))[:3], solves=solves)

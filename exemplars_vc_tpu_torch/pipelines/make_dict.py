@@ -48,31 +48,37 @@ class DictionaryArtifacts:
         return {k: v.detach().cpu().numpy() for k, v in self.__dict__.items()}
 
     def host_copies(self) -> dict:
-        """What ``ArtifactStore.save`` takes (its writer thread runs
-        ``np.asarray``, which a CUDA tensor does not take), without waiting
-        for the device: each CUDA tensor is copied into pinned host memory on
-        a side stream, and the returned handle waits for that copy only when
-        the writer asks for the array."""
-        cuda = [v for v in self.__dict__.values() if v.is_cuda]
-        if not cuda:
-            return self.to_numpy()
-        device = cuda[0].device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        out = {}
-        with torch.cuda.stream(side):
-            for k, v in self.__dict__.items():
-                if not v.is_cuda:
-                    out[k] = v.detach().numpy()
-                    continue
-                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                host.copy_(v.detach(), non_blocking=True)
-                v.record_stream(side)
-                out[k] = host
-            done = torch.cuda.Event()
-            done.record(side)
-        return {k: _HostCopy(v, done) if isinstance(v, torch.Tensor) else v
-                for k, v in out.items()}
+        """The fields as :func:`host_copies` hands them to the store."""
+        return host_copies(self.__dict__)
+
+
+def host_copies(tensors: dict) -> dict:
+    """What ``ArtifactStore.save`` takes (its writer thread runs
+    ``np.asarray``, which a CUDA tensor does not take), without waiting for
+    the device: each CUDA tensor is copied into pinned host memory on a side
+    stream, and the returned handle waits for that copy only when the writer
+    asks for the array; arrays and CPU tensors pass as arrays."""
+    cuda = [v for v in tensors.values() if isinstance(v, torch.Tensor) and v.is_cuda]
+    if not cuda:
+        return {k: v.detach().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in tensors.items()}
+    device = cuda[0].device
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    out = {}
+    with torch.cuda.stream(side):
+        for k, v in tensors.items():
+            if not (isinstance(v, torch.Tensor) and v.is_cuda):
+                out[k] = v.detach().numpy() if isinstance(v, torch.Tensor) else v
+                continue
+            host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host.copy_(v.detach(), non_blocking=True)
+            v.record_stream(side)
+            out[k] = host
+        done = torch.cuda.Event()
+        done.record(side)
+    return {k: _HostCopy(v, done) if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
 
 
 class _HostCopy:

@@ -1,10 +1,11 @@
 """Serving: a prepared converter for many utterances (port of
-``exemplars_vc_tpu/pipelines/serve.py``, STFT path).
+``exemplars_vc_tpu/pipelines/serve.py``).
 
-The dictionaries (DTW alignment, both |STFT| batches, the exemplar gather,
-the VTLP copies) are prepared once on the device; every later utterance is
-features → activation solve → Y = H·B → Griffin-Lim on tensors that are
-already there.
+The dictionaries (DTW alignment, both speakers' conversion features, the
+exemplar gather, the VTLP copies) are prepared once on the device; every
+later utterance is features → activation solve → Y = H·B → synthesis
+(Griffin-Lim, or the WORLD synthesizer on the WORLD path) on tensors that
+are already there.
 """
 
 from __future__ import annotations
@@ -23,13 +24,18 @@ from exemplars_vc_tpu_torch.factorize.nmf import convert_features
 from exemplars_vc_tpu_torch.io.store import ArtifactStore
 from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
 from exemplars_vc_tpu_torch.obs.profiling import Timer
-from exemplars_vc_tpu_torch.pipelines.conv_dicts import extract_stft_complex
+from exemplars_vc_tpu_torch.pipelines.conv_dicts import (
+    extract_stft_complex,
+    extract_world_features,
+)
 from exemplars_vc_tpu_torch.pipelines.convert import (
     _aligned_dicts,
     _check_slice,
+    _convert_features_of,
     _preprocess_frames,
     _smooth_h,
     _solve_activations,
+    world_synthesize,
 )
 
 log = logging.getLogger("exemplars_vc_tpu_torch")
@@ -61,12 +67,9 @@ class Converter:
             dicts, self.kind = _aligned_dicts(cfg, store, data_path, nb_file, self.device)
             self.dicts = {name: (A.float().contiguous(), B.float().contiguous())
                           for name, (A, B) in dicts.items()}
-        if self.kind != "stft":
-            raise NotImplementedError(f"conversion kind {self.kind!r} is not ported yet "
-                                      f"(ROADMAP queue 1 item 10)")
         self.prepare_seconds = t.elapsed
         log.info("converter ready (%s, %d exemplars) in %.2fs", self.kind,
-                 self.dicts["stft"][0].shape[0], t.elapsed)
+                 next(iter(self.dicts.values()))[0].shape[0], t.elapsed)
 
     def _features(self, x: np.ndarray):
         """(|S|, S): the magnitude feeds the solver, the complex STFT seeds
@@ -88,6 +91,8 @@ class Converter:
         """Convert one utterance; ``seconds`` is the wall time from the
         features to the audio on the host."""
         x, sr = read_wav(wav_path)
+        if self.kind != "stft":
+            return self._convert_world(x, sr, out_path)
         with Timer(self.device) as t:
             X, phase = self._features(x)
             A, B = self.dicts["stft"]
@@ -100,6 +105,21 @@ class Converter:
         return Converted(audio=audio, sr=sr, nmf_iters=st.n_iter, nmf_error=err,
                          seconds=t.elapsed)
 
+    def _convert_world(self, x: np.ndarray, sr: int, out_path: str | None) -> Converted:
+        """One WORLD conversion: analysis, the sp and ap solves (with the
+        residual unless ``nmf.use_residual`` is "off"), the log-MV f0,
+        synthesis."""
+        with Timer(self.device) as t:
+            feats = extract_world_features(x, self.cfg, self.device)
+            converted, states = _convert_features_of(
+                feats, self.dicts, self.cfg, use_residual=self.cfg.nmf.use_residual != "off")
+            audio = world_synthesize(converted, self.cfg, sr).cpu().numpy()
+            err = sum(float(st.error) for st in states.values())
+        if out_path is not None:
+            write_wav(out_path, audio, sr)
+        return Converted(audio=audio, sr=sr, nmf_iters=sum(st.n_iter for st in states.values()),
+                         nmf_error=err, seconds=t.elapsed)
+
     def convert_batch(self, wav_paths: list[str], out_dir: str | None = None,
                       synth_iters: int | None = None) -> list[Converted]:
         """Convert many utterances with one activation solve.
@@ -111,11 +131,16 @@ class Converter:
         run per utterance before stacking, and the temporal box filter
         (``nmf.h_smooth``) per utterance slice after a solve without it, so
         nothing crosses an utterance boundary. Synthesis runs per utterance,
-        seeded with its own phase."""
+        seeded with its own phase. On the WORLD path the utterances are
+        converted one by one, as in the reference."""
         if not wav_paths:
             return []
         if out_dir is not None:
             os.makedirs(out_dir, exist_ok=True)
+        if self.kind != "stft":
+            return [self.convert(p, out_path=(os.path.join(out_dir, os.path.basename(p))
+                                              if out_dir is not None else None),
+                                 synth_iters=synth_iters) for p in wav_paths]
         cfg = self.cfg
         sigs, mags, phases = [], [], []
         for p in wav_paths:

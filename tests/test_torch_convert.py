@@ -146,13 +146,21 @@ def test_fused_path_matches_jax(corpus, cfg, jcfg, tmp_path):
     ("data.use_stft=false", 10), ("nmf.solver=mu_sharded", 12),
 ])
 def test_unported_levers_raise(override, item, corpus, tmp_path):
-    """The levers that still wait: the WORLD path and the sharded solver.
-    Every other lever runs and has its parity case in
-    ``tests/test_torch_levers.py::test_lever_converts_as_jax``."""
+    """The lever that still waits, the sharded solver (ROADMAP queue 1 item
+    12), raises. The WORLD path (item 10, ported) converts: sp and ap solves
+    over 513 bins and finite audio (its parity with the JAX package:
+    ``tests/test_torch_world_convert.py``). Every other lever has its parity
+    case in ``tests/test_torch_levers.py::test_lever_converts_as_jax``."""
     data, src, _ = corpus
-    c = load_config(overrides=["misc.nb_file=3", override])
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\)"):
-        tconvert.convert_utterance(c, ArtifactStore(str(tmp_path)), data, src, device="cpu")
+    c = load_config(overrides=OVERRIDES + [override])
+    if item != 10:
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\)"):
+            tconvert.convert_utterance(c, ArtifactStore(str(tmp_path)), data, src, device="cpu")
+        return
+    res = tconvert.convert_utterance(c, ArtifactStore(str(tmp_path)), data, src, nb_file=3,
+                                     device="cpu")
+    assert set(res.converted) == {"sp", "ap", "f0"} and set(res.solves) == {"sp", "ap"}
+    assert res.solves["sp"][1:3] == (512, 513) and np.isfinite(res.audio).all()
 
 
 def test_mu_pallas_converts_as_mu(corpus, tmp_path):

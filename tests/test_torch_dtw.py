@@ -130,3 +130,34 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError, match="int32"):
         dtw_cuda._check_lens(torch.tensor([[5, 4], [1, 1]]), 2, 5, 4, C.device)
     assert dtw_cuda.fits_plan(1408) and not dtw_cuda.fits_plan(40000)
+
+
+@pytest.mark.parametrize("band", [7, 64, None], ids=["7", "64", "Ta"])
+@pytest.mark.parametrize("seed", [4, 5])
+def test_banded_twin_equals_unbanded(seed, band):
+    """The twin swept in row bands (the kernel's schedule past ``MAX_TA``
+    rows: each band starts from the previous band's last row, the codes
+    outside a band's diagonals stay 0) equals the unbanded twin byte for
+    byte: codes and final costs, on seeded pairs with ragged lengths."""
+    rng = np.random.default_rng(seed)
+    n, ta, tb = 4, 150, 97
+    C = pairwise_sqdist(torch.as_tensor(rng.standard_normal((n, ta, 5)).astype(np.float32)),
+                        torch.as_tensor(rng.standard_normal((n, tb, 5)).astype(np.float32)))
+    lens = torch.tensor([[ta, tb], [60, 97], [ta, 40], [1, 1]], dtype=torch.int32)
+    cost, dirs = dtw_cuda.dtw_wavefront_plain(C, lens)
+    rows = ta if band is None else band
+    got_cost, got_dirs = dtw_cuda.dtw_wavefront(C, lens, band_rows=rows)   # CPU: the twin
+    assert torch.equal(got_cost, cost) and torch.equal(got_dirs, dirs)
+    paths = dtw_cuda.dtw_backtrace(got_dirs, lens)
+    for got, ref in zip(paths, dtw_cuda.dtw_backtrace(dirs, lens)):
+        assert torch.equal(got, ref)
+
+
+def test_row_bands():
+    assert dtw_cuda.row_bands(100, 7)[-2:] == [(91, 98), (98, 100)]
+    assert dtw_cuda.row_bands(40_000) == [(0, 32_768), (32_768, 40_000)]
+    assert dtw_cuda.row_bands(32_768) == [(0, 32_768)]
+    for bad in (0, dtw_cuda.MAX_TA + 1):
+        with pytest.raises(ValueError, match="outside"):
+            dtw_cuda.row_bands(10, bad)
+

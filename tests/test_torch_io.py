@@ -188,7 +188,8 @@ def test_native_loader_builds_outside_the_source_tree(tmp_path):
 
 
 ENTRY_POINTS = ["convert_utterance", "make_dictionary", "build_conversion_dicts_pair",
-                "extract_stft_complex", "mcd_between_signals"]
+                "extract_stft_complex", "mcd_between_signals", "build_conversion_dicts",
+                "extract_world_features", "Converter"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -197,24 +198,31 @@ def test_entry_point_defaults_to_the_card(name, tmp_path):
     without one it raises rather than fall back to the CPU."""
     import inspect
 
-    from exemplars_vc_tpu_torch.pipelines import conv_dicts, convert, make_dict
+    from exemplars_vc_tpu_torch.pipelines import conv_dicts, convert, make_dict, serve
 
     fn = {"convert_utterance": convert.convert_utterance,
           "make_dictionary": make_dict.make_dictionary,
           "build_conversion_dicts_pair": conv_dicts.build_conversion_dicts_pair,
           "extract_stft_complex": conv_dicts.extract_stft_complex,
-          "mcd_between_signals": convert.mcd_between_signals}[name]
+          "mcd_between_signals": convert.mcd_between_signals,
+          "build_conversion_dicts": conv_dicts.build_conversion_dicts,
+          "extract_world_features": conv_dicts.extract_world_features,
+          "Converter": serve.Converter}[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device works")
     data, src, tar = build_standin_corpus(str(tmp_path / "c"), n_pairs=2)
-    cfg = tconfig.load_config(overrides=["data.tar=TF1", "misc.nb_file=2"])
+    world = ["data.use_stft=false"] if name in ("build_conversion_dicts", "Converter") else []
+    cfg = tconfig.load_config(overrides=["data.tar=TF1", "misc.nb_file=2"] + world)
     store = tstore.ArtifactStore(str(tmp_path / "s"))
     x, _ = twav.read_wav(src)
     args = {"convert_utterance": (cfg, store, data, src),
             "make_dictionary": (cfg, store, data),
             "build_conversion_dicts_pair": (cfg, store, data, "SF1", "TF1"),
             "extract_stft_complex": (x, cfg),
-            "mcd_between_signals": (x, x, cfg)}[name]
+            "mcd_between_signals": (x, x, cfg),
+            "build_conversion_dicts": (cfg, store, data, "SF1"),
+            "extract_world_features": (x, cfg),
+            "Converter": (cfg, store, data)}[name]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         fn(*args)

@@ -73,6 +73,28 @@ def _dtw_check(cuda, ta, tb, lens, dim=20, seed=0):
     return C, lens, cost, dirs, paths
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ta,tb,band_rows", [(300, 241, 64), (300, 241, 7), (517, 300, 100),
+                                             (1408, 1408, 1024), (4200, 50, 4097)])
+def test_dtw_kernel_bands_equal_twin(cuda, ta, tb, band_rows):
+    """The wavefront in row bands (one launch a band, each band's last row
+    handed to the next) against the unbanded twin, byte for byte: bands
+    that start off a 16-byte boundary (7, 100 rows), bands of one row a
+    lane and of eight (4097), and the lengths of ``_dtw_lens``."""
+    rng = np.random.default_rng(ta + band_rows)
+    lens = _dtw_lens(ta, tb).to(cuda)
+    n = lens.shape[0]
+    fa = torch.as_tensor(rng.standard_normal((n, ta, 8)).astype(np.float32), device=cuda)
+    fb = torch.as_tensor(rng.standard_normal((n, tb, 8)).astype(np.float32), device=cuda)
+    C = pairwise_sqdist(fa, fb).contiguous()
+    before = dtw_cuda.dtw_wavefront.launches
+    cost, dirs = dtw_cuda.dtw_wavefront(C, lens, band_rows=band_rows)
+    assert dtw_cuda.dtw_wavefront.launches == before + -(-ta // band_rows)
+    cost_p, dirs_p = dtw_cuda.dtw_wavefront_plain(C, lens)
+    assert torch.equal(cost, cost_p), (cost, cost_p)
+    assert torch.equal(dirs, dirs_p), int((dirs != dirs_p).sum())
+
+
 # Ta > 1024 and not a multiple of 32 (1409), Ta < Tb and Ta > Tb, Ta = 1 and
 # Tb = 1, Ta not a multiple of 4 (the byte-wise stores and window loads)
 @pytest.mark.cuda
@@ -261,9 +283,21 @@ def test_wrappers_reject_bad_inputs(cuda):
         nmf_cuda.nmf_recon(H, torch.zeros((8, 3), device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="expected"):
         nmf_cuda.nmf_recon(H, torch.zeros((8, 3)))
-    with pytest.raises(ValueError, match="queue 1 item 12"):
-        dtw_cuda.dtw_wavefront(torch.zeros((1, dtw_cuda.MAX_TA + 1, 2), device=cuda),
-                               torch.tensor([[1, 1]], dtype=torch.int32, device=cuda))
+    # a source one row past a launch's reach runs in two bands: the same codes
+    # and cost as in bands of 8192 rows and as the twin (on the card)
+    rng = np.random.default_rng(7)
+    ta, tb = dtw_cuda.MAX_TA + 1, 3
+    C = torch.as_tensor(rng.uniform(0, 1, (1, ta, tb)).astype(np.float32), device=cuda)
+    lens = torch.tensor([[ta, tb]], dtype=torch.int32, device=cuda)
+    before = dtw_cuda.dtw_wavefront.launches
+    cost, dirs = dtw_cuda.dtw_wavefront(C, lens)
+    assert dtw_cuda.dtw_wavefront.launches == before + 2
+    cost_8k, dirs_8k = dtw_cuda.dtw_wavefront(C, lens, band_rows=8192)
+    cost_p, dirs_p = dtw_cuda.dtw_wavefront_plain(C, lens)
+    assert torch.equal(cost, cost_8k) and torch.equal(dirs, dirs_8k)
+    assert torch.equal(cost, cost_p) and torch.equal(dirs, dirs_p)
+    with pytest.raises(ValueError, match="outside"):
+        dtw_cuda.dtw_wavefront(C, lens, band_rows=dtw_cuda.MAX_TA + 1)
 
 
 @pytest.mark.cuda

@@ -136,12 +136,17 @@ def test_converter_prepares_once(corpus, tmp_path):
 
 
 def test_converter_refuses_what_is_not_ported(corpus, tmp_path):
+    """The sharded solver still waits (ROADMAP queue 1 item 12); the WORLD
+    path, which waited for item 10, now prepares its dictionaries (its
+    conversions: ``tests/test_torch_world_convert.py``)."""
     data = corpus[0]
     store = ArtifactStore(str(tmp_path / "s"))
-    for override, item in (("data.use_stft=false", 10), ("nmf.solver=mu_sharded", 12)):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\)"):
-            Converter(load_config(overrides=OVERRIDES + [override]), store, data, nb_file=3,
-                      device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 12\)"):
+        Converter(load_config(overrides=OVERRIDES + ["nmf.solver=mu_sharded"]), store, data,
+                  nb_file=3, device="cpu")
+    conv = Converter(load_config(overrides=OVERRIDES + ["data.use_stft=false"]), store, data,
+                     nb_file=3, device="cpu")
+    assert conv.kind == "world" and conv.dicts["sp"][0].shape == (512, 513)
 
 
 def test_converter_defaults_to_the_card(corpus, tmp_path):
