@@ -121,11 +121,38 @@ Phases (any failure exits non-zero and prints no result line):
    ``world.f0_method=harvest`` and with ``world.sp_domain=magnitude`` and
    ``nmf.use_residual=off``; a WORLD ``Converter``: ``convert`` and
    ``convert_batch`` of two, each item within 1e-5 relative L2 of its
-   single conversion. Nothing in the phase catches a failure.
+   single conversion. Nothing in the phase catches a failure;
+8. stage 02, the evaluation protocols and the port's CLI, on the stand-in
+   corpus through ``pipelines.cli.main`` in-process with ``--device cuda``,
+   counters reset just before the first command and read after the last:
+   ``make-dict --feat mcep`` (one DTW launch each), ``freq-warp --variant
+   amf`` and ``--variant dfw`` (wall seconds each; the DFW batch of 512
+   pairs of 201-bin log-spectra is one more DTW launch each), ``warp-train``
+   at the default net (20 → 20, 2 layers, 20 epochs, one utterance a step:
+   ``train_seconds``, ``steps_per_s``, ``best_test_loss``) and ``warp-eval``
+   (its ``improvement``), ``eval-heldout`` with the four canonical configs at
+   their defaults (each stand-in MCD) and ``eval-loo --folds 100001,100005
+   --configs stft_quality`` (seconds a fold, the summary). Then the same
+   commands with ``--device cpu`` (the plain twins, which the CPU tests hold
+   to the JAX package): the MCEP dictionary's paths equal; the AMF anchors
+   within 1e-4; the DFW kernels on the CPU run's spectra give its paths
+   exactly, and the card run's curves differ from the CPU run's by at most
+   one bin on at most 0.1 % of their entries, the mean curve by 0.01 bins
+   (the two runs' |STFT| differ by float32 rounding, which flips a few
+   near-ties); a 3-epoch ``warp-train`` from the same initial parameters on
+   3 pairs: history within 1e-3 relative; ``eval-heldout`` of ``stft_parity`` (300
+   Griffin-Lim iterations, the default) and ``world_parity``: MCD within
+   0.05 dB. Last, the DTW kernels at the DFW shape, 512 × 201² with D = 1,
+   on those spectra and on seeded spectra with zeroed tails (runs of equal
+   costs at log(1e-8)): wavefront and backtrace byte-equal to their twins,
+   timed (CUDA events, median of 7), with the plan and the bound. Nothing in
+   the phase catches a failure.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: the main
 path's, and for the two fused kernels the fused path's; ``launches_serving``:
-the serving phase's; ``launches_world``: the WORLD phase's); the last line is
+the serving phase's; ``launches_world``: the WORLD phase's;
+``launches_stage02``: phase 8's; the DTW kernels also carry their time and
+bound at the DFW shape, ``dfw_ms`` and ``dfw_bound_ms``); the last line is
 ``{"ok": true, "device": {...}}``. The stand-in MCD is not comparable to the
 real corpus's.
 """
@@ -139,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1426,6 +1454,224 @@ def phase_world(torch, np, dev, root: str, corpus: tuple, counted: dict, fused: 
     return launches
 
 
+def dtw_dfw_shape(torch, np, dev, spectra: list, cpu_paths) -> dict:
+    """The DTW kernels at the DFW shape: each (SA, SB) of ``spectra`` as
+    N pairs of 201 × 201 1-dim log-spectra, against their twins byte for
+    byte; the first set's paths must equal ``cpu_paths`` (the CPU run's).
+    Times and bound at the first set."""
+    from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
+    from exemplars_vc_tpu_torch.align.dtw_cuda import (
+        dtw_backtrace, dtw_backtrace_plain, dtw_wavefront, dtw_wavefront_plain,
+        dtw_wavefront_plan)
+
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for k, (sa, sb) in enumerate(spectra):
+        ls, lt = (torch.log(torch.clamp(torch.as_tensor(s, device=dev), min=1e-8))[..., None]
+                  for s in (sa, sb))
+        n, b = sa.shape
+        C = pairwise_sqdist(ls, lt).contiguous()
+        lens = torch.full((n, 2), b, dtype=torch.int32, device=dev)
+        cost_k, dirs_k = dtw_wavefront(C, lens)
+        cost_p, dirs_p = dtw_wavefront_plain(C, lens)
+        paths_k = dtw_backtrace(dirs_k, lens)
+        paths_p = dtw_backtrace_plain(dirs_k, lens)
+        torch.cuda.synchronize()
+        ties = float((C[:, 1:, 1:] == C[:, :-1, :-1]).float().mean())
+        if not (torch.equal(dirs_k, dirs_p) and torch.equal(cost_k, cost_p)
+                and all(torch.equal(a, c) for a, c in zip(paths_k, paths_p))):
+            fail(f"dtw at the DFW shape (set {k}): kernels != twins: "
+                 f"{int((dirs_k != dirs_p).sum())} codes differ")
+        if k == 0:
+            if not (np.array_equal(paths_k[0].cpu().numpy(), cpu_paths[0])
+                    and np.array_equal(paths_k[1].cpu().numpy(), cpu_paths[1])):
+                fail("dtw at the DFW shape: the kernels' paths on the CPU run's spectra differ "
+                     "from the CPU run's")
+            plan = dtw_wavefront_plan(n, b, n_sms)
+            n_diag = 2 * b - 1
+            walked = int(paths_k[2].sum())
+            wf = bound(4 * n * b * b + n * n_diag * b + n * 12, 6 * n * n_diag * b)
+            bt = bound(n * 8 + walked + 2 * n * n_diag * 4 + n * 4, 0)
+            wms = cuda_ms(lambda: dtw_wavefront(C, lens))
+            bms = cuda_ms(lambda: dtw_backtrace(dirs_k, lens))
+            out = dict(wavefront=dict(ms=wms, bound_ms=wf[0], bound_by=wf[1],
+                                      plain_ms=cuda_ms(lambda: dtw_wavefront_plain(C, lens),
+                                                       reps=3)),
+                       backtrace=dict(ms=bms, bound_ms=bt[0], bound_by=bt[1],
+                                      plain_ms=cuda_ms(lambda: dtw_backtrace_plain(dirs_k, lens),
+                                                       reps=3)))
+            say(f"dtw at the DFW shape: N={n} Ta=Tb={b} D=1 (the CPU run's spectra; equal-cost "
+                f"diagonal neighbours {ties:.4f}): both kernels byte-equal to their twins, paths "
+                f"equal to the CPU run's; plan R={plan['rows_per_lane']}, {plan['warps']} warps, "
+                f"cluster {plan['cluster']}, grid {plan['grid']}, {plan['threads']} threads on "
+                f"{n_sms} SMs; path cells {walked}")
+            for name, r in out.items():
+                say(f"  {name} {r['ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+                    f"roofline share {r['bound_ms'] / r['ms']:.4f}; twin {r['plain_ms']:.4f} ms")
+        else:
+            say(f"dtw at the DFW shape, seeded spectra with zeroed tails (equal-cost diagonal "
+                f"neighbours {ties:.4f}): both kernels byte-equal to their twins")
+        del C, dirs_k, dirs_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stage02(torch, np, dev, root: str, corpus: tuple, counted: dict,
+                  fused: dict) -> dict:
+    """Stage 02, evaluation and the CLI on the stand-in corpus (module
+    docstring, phase 8). Any failed gate exits; nothing here catches one."""
+    import contextlib
+    import io
+
+    from exemplars_vc_tpu_torch.io.standin import build_standin_corpus
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.pipelines import freq_warp
+    from exemplars_vc_tpu_torch.pipelines.cli import main as cli
+
+    data = corpus[0]
+    all_fns = {**counted, **fused}
+    dfw = freq_warp.dfw_warping
+    seen = {}
+
+    def spy(sa, sb):
+        seen["spectra"] = sa.cpu().numpy(), sb.cpu().numpy()
+        seen["paths"] = dfw(sa, sb)
+        return seen["paths"]
+
+    def run(device: str, store: str, *argv, data=data, nb="8") -> tuple[dict, float]:
+        """One CLI command in this process: its JSON line and wall seconds."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli([argv[0], "--data", data, "--store", os.path.join(root, store), "--nb-file", nb,
+                 "--tar", "TF1", "--device", device, *argv[1:]])
+        for t in threading.enumerate():    # the command's store writes land (a process
+            if t.name.startswith("evc-save-"):    # exit would wait for them too)
+                t.join()
+        torch.cuda.synchronize()
+        return json.loads(buf.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+    def dtw_launches():
+        return counted["dtw_wavefront"].launches, counted["dtw_backtrace"].launches
+
+    freq_warp.dfw_warping = spy
+    try:
+        for fn in all_fns.values():
+            fn.launches = 0
+        walls, dtw = {}, {}
+        before = dtw_launches()
+        md, walls["make-dict mcep"] = run("cuda", "s02", "make-dict", "--feat", "mcep")
+        dtw["make-dict mcep"] = tuple(a - b for a, b in zip(dtw_launches(), before))
+        for variant in ("amf", "dfw"):
+            before = dtw_launches()
+            out, walls[f"freq-warp {variant}"] = run("cuda", "s02", "freq-warp", "--variant",
+                                                     variant)
+            dtw[f"freq-warp {variant}"] = tuple(a - b for a, b in zip(dtw_launches(), before))
+            if out["artifacts"] != ({"anchors": [512, 2, 22], "mean_anchors": [2, 22]}
+                                    if variant == "amf"
+                                    else {"curves": [512, 201], "mean_curve": [201]}):
+                fail(f"freq-warp {variant}: artifacts {out['artifacts']}")
+        train, walls["warp-train"] = run("cuda", "s02", "warp-train", "--runs",
+                                         os.path.join(root, "s02_runs"))
+        ev, walls["warp-eval"] = run("cuda", "s02", "warp-eval")
+        held, walls["eval-heldout"] = run("cuda", "s02", "eval-heldout")
+        loo, walls["eval-loo"] = run("cuda", "s02", "eval-loo", "--folds", "100001,100005",
+                                     "--configs", "stft_quality")
+        launches = {name: fn.launches for name, fn in all_fns.items()}
+
+        say(f"stage 02: make-dict --feat mcep {json.dumps(md)}; DTW launches (wavefront, "
+            f"backtrace) by command {json.dumps(dtw)}")
+        say(f"stage 02: wall s by command {json.dumps({k: round(v, 4) for k, v in walls.items()})}")
+        say(f"stage 02: warp-train train_seconds {train['train_seconds']:.4f}, steps_per_s "
+            f"{train['steps_per_s']}, steps {train['steps_run']}, epochs {train['epochs_run']}, "
+            f"best_test_loss {train['best_test_loss']:.6g} (epoch {train['best_epoch']}), "
+            f"seconds_to_best {train['seconds_to_best']}; warp-eval {json.dumps(ev)}")
+        say(f"stage 02: eval-heldout (stand-in MCD, dB; not comparable to the real corpus's) "
+            f"{json.dumps(held)}")
+        say(f"stage 02: eval-loo {json.dumps(loo)}; {walls['eval-loo'] / 2:.4f} s a fold")
+        if launches["nmf_mu_fused"] or launches["gl_angles_fused"]:
+            fail(f"stage 02: a fused kernel launched: {launches}")
+        if (dtw["make-dict mcep"] != (1, 1) or dtw["freq-warp dfw"][0] < 1
+                or min(launches[k] for k in counted) < 1):
+            fail(f"stage 02: launches {launches}, DTW by command {dtw}")
+        if train["epochs_run"] != 20 or not np.isfinite(train["best_test_loss"]):
+            fail(f"stage 02: warp-train {train}")
+        if sorted(held["scores"]) != sorted(["stft_parity", "stft_quality", "world_parity",
+                                            "world_quality"]) or \
+                not all(np.isfinite(v["mcd_db"]) for v in held["scores"].values()):
+            fail(f"stage 02: eval-heldout {held}")
+        if [f["utt"] for f in loo["folds"]] != ["100001", "100005"] or \
+                not np.isfinite(loo["summary"]["stft_quality"]["mean"]):
+            fail(f"stage 02: eval-loo {loo}")
+
+        # the port's CPU run of the same commands (the plain twins)
+        t0 = time.perf_counter()
+        run("cpu", "s02_cpu", "make-dict", "--feat", "mcep")
+        for variant in ("amf", "dfw"):
+            run("cpu", "s02_cpu", "freq-warp", "--variant", variant)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        freq_warp.dfw_warping = dfw
+    card, host = ArtifactStore(os.path.join(root, "s02")), ArtifactStore(os.path.join(root, "s02_cpu"))
+    a, b = card.load("exemplar_dict_SF12TF1_mcep_8_torch"), host.load("exemplar_dict_SF12TF1_mcep_8_torch")
+    same = all(np.array_equal(a[k], b[k]) for k in ("path_i", "path_j", "path_len"))
+    e_feat = float(np.abs(a["feat_a"] - b["feat_a"]).max() / np.abs(b["feat_a"]).max())
+    say(f"stage 02: MCEP dictionary card vs CPU: paths equal {same}, features rel {e_feat:.3g}")
+    if not same:
+        fail("stage 02: the MCEP dictionary's paths differ between the card and the CPU")
+    amf_c, amf_h = card.load("freq_warp_amf_SF12TF1_8_torch"), host.load("freq_warp_amf_SF12TF1_8_torch")
+    e_amf = max(float(np.abs(amf_c[k] - amf_h[k]).max()) for k in amf_c)
+    dfw_c, dfw_h = card.load("freq_warp_dfw_SF12TF1_8_torch"), host.load("freq_warp_dfw_SF12TF1_8_torch")
+    d = np.abs(dfw_c["curves"] - dfw_h["curves"])
+    e_mean = float(np.abs(dfw_c["mean_curve"] - dfw_h["mean_curve"]).max())
+    say(f"stage 02: freq-warp card vs CPU: AMF anchors max |diff| {e_amf:.3g} rad (limit 1e-4); "
+        f"DFW curves differ on {int((d > 0).sum())} of {d.size} entries (limit 0.1 %), by at "
+        f"most {d.max():.3g} bins (limit 1), mean curve {e_mean:.3g} (limit 0.01); CPU runs "
+        f"{cpu_s:.2f} s")
+    if e_amf > 1e-4 or d.max() > 1.0 or (d > 0).mean() > 1e-3 or e_mean > 1e-2:
+        fail("stage 02: freq-warp card and CPU disagree")
+
+    # a 3-epoch warp-train from the same initial parameters on both devices, on
+    # 3 pairs (2 steps an epoch, as the CPU test against the JAX package): each
+    # RMSprop step moves a parameter whose gradient is a rounding residue by
+    # ±lr·10, so the two devices' float32 trajectories part with the steps (on
+    # the 8 pairs, 18 steps: 7e-6 after the first epoch, 3.4e-2 after the third)
+    small = build_standin_corpus(os.path.join(root, "s02_small"), n_pairs=3)[0]
+    hist = {dv: run(dv, f"s02_train_{dv}", "warp-train", "-o", "net.nb_epoch=3", "--runs",
+                    os.path.join(root, f"s02_runs_{dv}"), data=small, nb="3")[0]["history"]
+            for dv in ("cuda", "cpu")}
+    e_hist = max(abs(hc[k] - hh[k]) / abs(hh[k]) for hc, hh in zip(hist["cuda"], hist["cpu"])
+                 for k in ("train_loss", "test_loss"))
+    say(f"stage 02: warp-train 3 epochs on 3 pairs, card vs CPU: history rel {e_hist:.3g} "
+        f"(limit 1e-3); test loss {[round(h['test_loss'], 3) for h in hist['cuda']]} / "
+        f"{[round(h['test_loss'], 3) for h in hist['cpu']]}")
+    if len(hist["cuda"]) != 3 or e_hist > 1e-3:
+        fail("stage 02: warp-train card and CPU disagree")
+
+    # eval-heldout on the CPU: the parity configs at their defaults
+    t0 = time.perf_counter()
+    held_cpu, _ = run("cpu", "s02_cpu", "eval-heldout", "--configs", "stft_parity,world_parity")
+    diffs = {k: abs(held["scores"][k]["mcd_db"] - v["mcd_db"])
+             for k, v in held_cpu["scores"].items()}
+    say(f"stage 02: eval-heldout card vs CPU (stft_parity at 300 Griffin-Lim iterations, the "
+        f"default): |MCD diff| {json.dumps(diffs)} dB (limit 0.05); CPU "
+        f"{json.dumps(held_cpu['scores'])}, {time.perf_counter() - t0:.2f} s")
+    if max(diffs.values()) > 0.05:
+        fail("stage 02: eval-heldout card and CPU disagree")
+
+    zero_tail = []
+    rng = np.random.default_rng(8)
+    for _ in range(2):
+        s_ = np.abs(rng.standard_normal((512, 201))).astype(np.float32)
+        for row, cut in zip(s_, rng.integers(100, 201, 512)):
+            row[cut:] = 0.0
+        zero_tail.append(s_)
+    dfw_kernels = dtw_dfw_shape(torch, np, dev, [seen["spectra"], tuple(zero_tail)],
+                                seen["paths"])
+    return {"launches": launches, "dfw": dfw_kernels}
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1449,7 +1695,8 @@ def main() -> None:
                          timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    say(smi.stdout.strip().splitlines()[0])   # the card's name and power limit
+    card = smi.stdout.strip().splitlines()[0]   # the card's name and power limit
+    say(card)
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device count {torch.cuda.device_count()}")
     dev = torch.device("cuda:0")
@@ -1489,16 +1736,22 @@ def main() -> None:
         serving = phase_serving(torch, np, dev, root, corpus[0], counted, fused, default_mcd)
         phase_small_agreement(torch, np, dev, root)
         world = phase_world(torch, np, dev, root, corpus, counted, fused)
+        stage02 = phase_stage02(torch, np, dev, root, corpus, counted, fused)
     if "jax" in sys.modules:
         fail("jax was imported")
+    say(card)    # again beside the numbers, for a reader of the output's end
 
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
          "launches_serving": serving[name], "launches_world": world[name],
+         "launches_stage02": stage02["launches"][name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"]}
+         "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
+         **({"dfw_ms": stage02["dfw"][name[4:]]["ms"],
+             "dfw_bound_ms": stage02["dfw"][name[4:]]["bound_ms"]}
+            if name.startswith("dtw_") else {})}
         for name in sources]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

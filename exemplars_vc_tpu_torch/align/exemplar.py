@@ -14,6 +14,10 @@ def gather_aligned(feat: torch.Tensor, path: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(feat, idx[..., None], dim=-2)
 
 
+# (N, T, D) + (N, P) → (N, P, D): the JAX package's batched name for the same gather
+gather_aligned_batch = gather_aligned
+
+
 def build_exemplar_dicts_padded(feats_a: torch.Tensor, feats_b: torch.Tensor,
                                 path_i: torch.Tensor, path_j: torch.Tensor,
                                 k_pad: int | None = None):

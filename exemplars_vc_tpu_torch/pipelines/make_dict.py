@@ -1,10 +1,11 @@
 """Parallel exemplar-dictionary construction (port of
 ``exemplars_vc_tpu/pipelines/make_dict.py``).
 
-Load both speakers' utterances, compute the alignment MFCC of all of them in
-one batched call, DTW-align every pair in one batched wavefront (the kernels
-of :mod:`exemplars_vc_tpu_torch.align.dtw_cuda` on the card), and persist the
-index-path dictionary in the artifact store under a ``_torch`` key.
+Load both speakers' utterances, compute the alignment features (MFCC, or
+mel-cepstra) of all of them in batched calls, DTW-align every pair in one
+batched wavefront (the kernels of :mod:`exemplars_vc_tpu_torch.align.dtw_cuda`
+on the card), and persist the index-path dictionary in the artifact store
+under a ``_torch`` key.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from exemplars_vc_tpu_torch.align.dtw import dtw_batch
 from exemplars_vc_tpu_torch.config import Config
 from exemplars_vc_tpu_torch.device import resolve_device
+from exemplars_vc_tpu_torch.dsp.mcep import mcep
 from exemplars_vc_tpu_torch.dsp.mel import mfcc
 from exemplars_vc_tpu_torch.io.store import ArtifactStore, load_speaker
 
@@ -165,12 +167,34 @@ def pair_mfcc(cfg: Config, data_path: str, nb: int, device: torch.device):
     return (FA, la), (FB, lb)
 
 
+def pair_mcep(cfg: Config, data_path: str, nb: int, device: torch.device):
+    """Alignment mel-cepstra for both speakers, one batched call each: the
+    uncentered framing gives (samples − frame_length)//hop + 1 frames, cut
+    or padded to the bucket and masked as :func:`pair_mfcc`'s. Returns
+    (FA, la), (FB, lb), the lengths as int32 host arrays."""
+    m = cfg.mcep
+    bucket = cfg.data.frame_bucket
+    batches = [speaker_batch(data_path, spk, nb, m.hop_length * bucket, cfg.misc.cpu_rate)
+               for spk in (cfg.data.src, cfg.data.tar)]
+    n = min(b[0].shape[0] for b in batches)
+    out = []
+    for batch, samples in batches:
+        lens = ((samples[:n] - m.frame_length) // m.hop_length + 1).astype(np.int32)
+        feats = mcep(torch.as_tensor(batch[:n], device=device), frame_length=m.frame_length,
+                     hop_length=m.hop_length, order=m.order, alpha=m.alpha)
+        out.append((trim_and_mask(feats, _round_up(int(lens.max()), bucket),
+                                  torch.as_tensor(lens, device=device)), lens))
+    return out[0], out[1]
+
+
 def make_dictionary(cfg: Config, store: ArtifactStore, data_path: str,
                     feat: str = "mfcc", nb_file: int | None = None,
                     *, device: str | torch.device = "cuda") -> DictionaryArtifacts:
-    """Build (or load) the parallel exemplar dictionary for cfg.data.src→tar."""
-    if feat != "mfcc":
-        raise NotImplementedError(f"alignment feature {feat!r}: only 'mfcc' is ported")
+    """Build (or load) the parallel exemplar dictionary for cfg.data.src→tar,
+    aligned on MFCC (``feat="mfcc"``, what the reference's final flow aligns
+    on) or on mel-cepstra (``"mcep"`` or ``"mcc"``)."""
+    if feat not in ("mfcc", "mcep", "mcc"):
+        raise ValueError(f"unsupported alignment feature {feat!r}")
     device = resolve_device(device)
     nb = nb_file if nb_file is not None else cfg.misc.nb_file
     hop_tag = "" if cfg.mcep.hop_length == 80 else f"_h{cfg.mcep.hop_length}"
@@ -179,7 +203,7 @@ def make_dictionary(cfg: Config, store: ArtifactStore, data_path: str,
         log.info("dictionary cache hit: %s", key)
         return from_jax_artifacts(store.load(key), device)
 
-    (FA, la), (FB, lb) = pair_mfcc(cfg, data_path, nb, device)
+    (FA, la), (FB, lb) = (pair_mfcc if feat == "mfcc" else pair_mcep)(cfg, data_path, nb, device)
     # the lengths are host arrays, so the DTW wrappers check them there; only
     # the per-pair scalars come back to the host here (path_len sizes the
     # exemplar bucket). The paths and features stay on the device, and their

@@ -173,6 +173,53 @@ def test_padding_helpers_equal_jax():
     assert not hasattr(tstore, "stacked_speaker_batch")
 
 
+def _code_of(path: Path) -> str:
+    """The module's AST without docstrings, the port's package name read as
+    the JAX package's: what is left of a faithful copy."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+        if isinstance(node, ast.Constant) and node.value == "exemplars_vc_tpu_torch":
+            node.value = "exemplars_vc_tpu"
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", ["obs/logging.py", "obs/scalars.py"])
+def test_obs_modules_are_copies_of_jax(module):
+    """``obs/logging.py`` and ``obs/scalars.py`` are the JAX package's code;
+    only docstrings and ``get_logger``'s default name (the port's logger)
+    differ."""
+    assert _code_of(REPO / "exemplars_vc_tpu_torch" / module) == \
+        _code_of(REPO / "exemplars_vc_tpu" / module)
+
+
+def test_obs_copies_behave_as_jax(tmp_path):
+    from exemplars_vc_tpu.obs import logging as jlogging
+    from exemplars_vc_tpu.obs import scalars as jscalars
+    from exemplars_vc_tpu_torch.obs import logging as tlogging
+    from exemplars_vc_tpu_torch.obs import scalars as tscalars
+
+    assert tlogging.get_logger().name == "exemplars_vc_tpu_torch"
+    for mod in (tlogging, jlogging):
+        root = tmp_path / mod.__name__
+        os.makedirs(root / "3")
+        os.makedirs(root / "notes")
+        assert [os.path.basename(mod.new_run_dir(str(root))) for _ in range(2)] == ["4", "5"]
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((4, 5)).astype(np.float32)
+    for mod in (tscalars, jscalars):
+        with mod.ScalarWriter(str(tmp_path / ("s_" + mod.__name__))) as sw:
+            sw.scalar("loss/train", 1.5, 0)
+            sw.summary("params/leaf_0", w, 0)
+    got, ref = (mod.read_scalars(str(tmp_path / ("s_" + mod.__name__) / "scalars.jsonl"))
+                for mod in (tscalars, jscalars))
+    strip = [{k: v for k, v in e.items() if k != "wall"} for e in got]
+    assert strip == [{k: v for k, v in e.items() if k != "wall"} for e in ref]
+
+
 def test_native_loader_builds_outside_the_source_tree(tmp_path):
     """The library goes to the git-ignored build directory, never into
     ``native/``; where it builds, it decodes as the numpy reader does."""
@@ -189,7 +236,9 @@ def test_native_loader_builds_outside_the_source_tree(tmp_path):
 
 ENTRY_POINTS = ["convert_utterance", "make_dictionary", "build_conversion_dicts_pair",
                 "extract_stft_complex", "mcd_between_signals", "build_conversion_dicts",
-                "extract_world_features", "Converter"]
+                "extract_world_features", "Converter", "run_freq_warp", "train_warping_net",
+                "make_warping_dataset", "apply_warping_net", "evaluate_heldout", "evaluate_loo",
+                "no_conversion_baseline"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -198,9 +247,18 @@ def test_entry_point_defaults_to_the_card(name, tmp_path):
     without one it raises rather than fall back to the CPU."""
     import inspect
 
-    from exemplars_vc_tpu_torch.pipelines import conv_dicts, convert, make_dict, serve
+    from exemplars_vc_tpu_torch.models import train
+    from exemplars_vc_tpu_torch.pipelines import (
+        conv_dicts, convert, evaluate, freq_warp, make_dict, serve)
 
-    fn = {"convert_utterance": convert.convert_utterance,
+    fn = {"run_freq_warp": freq_warp.run_freq_warp,
+          "train_warping_net": train.train_warping_net,
+          "make_warping_dataset": train.make_warping_dataset,
+          "apply_warping_net": train.apply_warping_net,
+          "evaluate_heldout": evaluate.evaluate_heldout,
+          "evaluate_loo": evaluate.evaluate_loo,
+          "no_conversion_baseline": evaluate.no_conversion_baseline,
+          "convert_utterance": convert.convert_utterance,
           "make_dictionary": make_dict.make_dictionary,
           "build_conversion_dicts_pair": conv_dicts.build_conversion_dicts_pair,
           "extract_stft_complex": conv_dicts.extract_stft_complex,
@@ -216,7 +274,14 @@ def test_entry_point_defaults_to_the_card(name, tmp_path):
     cfg = tconfig.load_config(overrides=["data.tar=TF1", "misc.nb_file=2"] + world)
     store = tstore.ArtifactStore(str(tmp_path / "s"))
     x, _ = twav.read_wav(src)
-    args = {"convert_utterance": (cfg, store, data, src),
+    args = {"run_freq_warp": (cfg, store, data),
+            "train_warping_net": (cfg, store, data),
+            "make_warping_dataset": (cfg, store, data),
+            "apply_warping_net": (store, cfg, np.zeros((1, 4, 20), np.float32)),
+            "evaluate_heldout": (cfg, store, data),
+            "evaluate_loo": (cfg, store, data),
+            "no_conversion_baseline": (cfg, data),
+            "convert_utterance": (cfg, store, data, src),
             "make_dictionary": (cfg, store, data),
             "build_conversion_dicts_pair": (cfg, store, data, "SF1", "TF1"),
             "extract_stft_complex": (x, cfg),
