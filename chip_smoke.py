@@ -148,11 +148,46 @@ Phases (any failure exits non-zero and prints no result line):
    timed (CUDA events, median of 7), with the plan and the bound. Nothing in
    the phase catches a failure.
 
+9. the parallel package (``exemplars_vc_tpu_torch/parallel``): first the
+   wavefront kernel's tile mode against its twin, byte for byte (codes,
+   bottom row, right column, with every halo set, a window off a 16-byte
+   boundary, one row a lane and eight, with and without codes), and at
+   the sequence-parallel DTW's tile (16,384 rows x 512 columns of a
+   2048-column strip), timed there beside its bound and its twin's time;
+   a single-device 5-epoch warp-train (2 utterances a step, after a warm
+   epoch) for the step rate. Then a world of two gloo ranks that share the
+   card and a world of one nccl rank, one process a rank
+   (``torch.multiprocessing.spawn``; TCP rendezvous on localhost), each
+   rank against its single-device counterpart in the same process, each
+   path's first call counted and gated, then timed (median of 3): the
+   dictionary-sharded NMF at F = 688, K = 115,200, D = 201 (equal n_iter,
+   H within 2e-3 and the error within 1e-3 relative, 1 + n_iter
+   ``nmf_recon`` and n_iter ``nmf_update`` launches a rank), and
+   ``nmf_recon`` and ``nmf_update`` at the rank's shard (688 x K/n x 201)
+   against their twins (1e-5 relative); with two ranks
+   also ``convert_utterance`` with ``nmf.solver=mu_sharded`` on the
+   stand-in corpus against ``mu`` (dY = max|ΔY| / max|Y| ≤ 2e-3, Y and
+   audio equal on both ranks) and the two kernels at its shard (F x K/n x
+   D) against their twins, ``sharded_dtw_batch`` of 8 pairs padded to
+   1408 frames against ``dtw_batch`` (all outputs equal),
+   ``sharded_dtw_long`` of one 32,768 x 2000 pair in 512-column tiles
+   against the single-device wavefront on the same C (codes, distance and
+   path equal; the distance-only variant's distance equal), and
+   ``train_warping_net(data_parallel=True)`` for 5 epochs after a 1-epoch
+   warm run (finite, decreasing loss; parameters equal on both ranks). Each rank's launches
+   are counted from 0 around its driven calls only. A failed gate in a rank
+   ends its world, and the phase fails.
+
 The line before the last is ``{"kernels": [...]}`` (``launches``: the main
 path's, and for the two fused kernels the fused path's; ``launches_serving``:
 the serving phase's; ``launches_world``: the WORLD phase's;
-``launches_stage02``: phase 8's; the DTW kernels also carry their time and
-bound at the DFW shape, ``dfw_ms`` and ``dfw_bound_ms``); the last line is
+``launches_stage02``: phase 8's; ``launches_parallel``: phase 9's rank 0 in
+the two-rank world; the DTW kernels also carry their time and bound at the
+DFW shape, ``dfw_ms`` and ``dfw_bound_ms``, and the wavefront its tile
+mode's launches in phase 9, ``tile_launches_parallel``, its time with and
+without codes, bound and largest error against the twin; ``nmf_recon`` and
+``nmf_update`` their largest error against the twin at phase 9's shards,
+``shard_max_abs_err``); the last line is
 ``{"ok": true, "device": {...}}``. The stand-in MCD is not comparable to the
 real corpus's.
 """
@@ -1672,6 +1707,426 @@ def phase_stage02(torch, np, dev, root: str, corpus: tuple, counted: dict,
     return {"launches": launches, "dfw": dfw_kernels}
 
 
+def _counts(fns: dict) -> dict:
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def _zero(fns: dict) -> None:
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def shard_kernels(torch, H, A, X) -> dict:
+    """``nmf_recon`` and ``nmf_update`` at one rank's shard (H (F, K/n),
+    A (K/n, D), X (F, D)) against their twins, one call each: the relative
+    error and the largest absolute one of each (phase 2's gate: 1e-5)."""
+    from exemplars_vc_tpu_torch.factorize.nmf_cuda import (
+        nmf_recon, nmf_recon_plain, nmf_update, nmf_update_plain)
+
+    Num = X @ A.T
+    P = nmf_recon_plain(H, A)
+    out = {}
+    for name, got, want in (("nmf_recon", nmf_recon(H, A), P),
+                            ("nmf_update", nmf_update(P, A, H, Num),
+                             nmf_update_plain(P, A, H, Num))):
+        out[name] = dict(shape=[H.shape[0], H.shape[1], A.shape[1]], rel=rel_err(got, want),
+                         max_abs_err=float((got - want).abs().max()))
+    return out
+
+
+def parallel_rank(rank: int, world: int, port: int, backend: str, out_dir: str, data: str,
+                  wav: str) -> None:
+    """One rank of phase 9 (module docstring): the sharded NMF, and with
+    more than one rank the sharded conversion, the sharded batch and
+    sequence-parallel DTW and data-parallel training, each against its
+    single-device counterpart in this rank. With ``nccl`` rank r drives card
+    r, with ``gloo`` every rank card 0. Each path's first call is the driven
+    one (launches counted, outputs gated); the times that follow are the
+    median of 3 fenced calls (rank 0 alone for the long DTW's sweep).
+    Writes its measurements to ``out_dir/<rank>.json``; a failed gate
+    raises, which ends the world."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from exemplars_vc_tpu_torch.align import dtw_cuda
+    from exemplars_vc_tpu_torch.align.dtw import dtw_batch
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.factorize import nmf_cuda
+    from exemplars_vc_tpu_torch.factorize.nmf import nmf_activations
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.models.train import train_warping_net
+    from exemplars_vc_tpu_torch.parallel import (
+        initialize_multihost, make_mesh, sharded_dtw_batch, sharded_nmf_activations)
+    from exemplars_vc_tpu_torch.parallel.sharded_long_dtw import (
+        backtrace_host, cost_strip, sharded_dtw_long)
+    from exemplars_vc_tpu_torch.parallel.sharded_nmf import gather_activations
+    from exemplars_vc_tpu_torch.pipelines.convert import convert_utterance
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            raise RuntimeError(f"phase 9, rank {rank}: {msg}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def median_ms(fn, together: bool = True) -> float:
+        """Median wall of 3 fenced calls; ``together``: every rank calls,
+        each call after a barrier."""
+        times = []
+        for _ in range(3):
+            if together:
+                dist.barrier()
+            times.append(timed(fn)[1])
+        return statistics.median(times)
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    info = initialize_multihost(f"127.0.0.1:{port}", world, rank, device=dev, backend=backend)
+    torch.cuda.set_device(dev)
+    fns = {"dtw_wavefront": dtw_cuda.dtw_wavefront, "dtw_backtrace": dtw_cuda.dtw_backtrace,
+           "dtw_tile": dtw_cuda.dtw_tile, "nmf_recon": nmf_cuda.nmf_recon,
+           "nmf_update": nmf_cuda.nmf_update}
+    res = {"info": info, "backend": dist.get_backend(), "device": str(dev)}
+    path = {k: 0 for k in fns}        # launches of the driven path in this rank
+
+    # the sharded NMF at the kernel cell's large dictionary, against the
+    # single-device solve at the same shape
+    F, K, D = 688, 115_200, 201
+    rng = np.random.default_rng(9)
+    X = torch.as_tensor(np.abs(rng.standard_normal((F, D))).astype(np.float32), device=dev)
+    A = torch.as_tensor(np.abs(rng.standard_normal((K, D))).astype(np.float32), device=dev)
+    mesh = make_mesh(data=1, dict_=world)
+    dist.barrier()
+    _zero(fns)
+    st = sharded_nmf_activations(X, A, mesh)
+    d_nmf = _counts(fns)
+    ms = median_ms(lambda: sharded_nmf_activations(X, A, mesh))
+    H = gather_activations(st.H, mesh)
+    ref = nmf_activations(X, A)
+    ref_ms = median_ms(lambda: nmf_activations(X, A))
+    e_h = float((H - ref.H).abs().max() / ref.H.abs().max())
+    e_err = abs(float(st.error) - float(ref.error)) / float(ref.error)
+    res["nmf"] = dict(F=F, K=K, D=D, n_iter=st.n_iter, ref_n_iter=ref.n_iter, h_rel=e_h,
+                      err_rel=e_err, ms=ms, ref_ms=ref_ms, launches=d_nmf)
+    check(st.n_iter == ref.n_iter, f"sharded NMF n_iter {st.n_iter} != {ref.n_iter}")
+    check(e_h <= 2e-3 and e_err <= 1e-3, f"sharded NMF H rel {e_h:.3g}, error rel {e_err:.3g}")
+    check(d_nmf["nmf_recon"] == 1 + st.n_iter and d_nmf["nmf_update"] == st.n_iter,
+          f"sharded NMF launches {d_nmf} for n_iter {st.n_iter}")
+    for k in path:
+        path[k] += d_nmf[k]
+    res["shard_kernels"] = []
+
+    def shard_case(H, A, X):
+        """The kernels at this rank's shard of a solve, against their twins."""
+        case = shard_kernels(torch, H, A, X)
+        res["shard_kernels"].append(case)
+        for name, r in case.items():
+            check(r["rel"] <= 1e-5, f"{name} at the shard {r['shape']}: rel err {r['rel']:.3g} "
+                                    f"against its twin (limit 1e-5)")
+
+    kl = K // world
+    shard_case(st.H, A[rank * kl:(rank + 1) * kl], X)
+    del H, ref, st
+    if world == 1:
+        res["path_launches"] = path
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+        return
+
+    # the mu_sharded conversion against mu, on the stand-in corpus
+    cfg = load_config(overrides=["data.tar=TF1"])
+    cfg_sh = load_config(overrides=["data.tar=TF1", "nmf.solver=mu_sharded"])
+    root = os.path.join(out_dir, f"stores_{rank}")
+    convert_utterance(cfg_sh, ArtifactStore(os.path.join(root, "warm")), data, wav, nb_file=8,
+                      device=dev)
+    _zero(fns)
+    sh, sh_ms = timed(lambda: convert_utterance(cfg_sh, ArtifactStore(os.path.join(root, "sh")),
+                                                data, wav, nb_file=8, sync_stages=True,
+                                                device=dev))
+    d_conv = _counts(fns)
+    mu, mu_ms = timed(lambda: convert_utterance(cfg, ArtifactStore(os.path.join(root, "mu")),
+                                                data, wav, nb_file=8, sync_stages=True,
+                                                device=dev))
+    Y, Ymu = sh.converted["stft"].double(), mu.converted["stft"].double()
+    dY = float((Y - Ymu).abs().max() / Ymu.abs().max())
+    parts = [torch.empty_like(sh.converted["stft"]) for _ in range(world)]
+    dist.all_gather(parts, sh.converted["stft"])
+    audio = torch.as_tensor(sh.audio, device=dev)
+    audios = [torch.empty_like(audio) for _ in range(world)]
+    dist.all_gather(audios, audio)
+    same = all(torch.equal(p, parts[0]) for p in parts) and all(
+        torch.equal(a, audios[0]) for a in audios)
+    res["convert"] = dict(dY=dY, n_iter=sh.n_iter, mu_n_iter=mu.n_iter, K=sh.nmf_shape[1],
+                          ms=sh_ms, mu_ms=mu_ms, solve_ms=1e3 * sh.timings["nmf_solve"],
+                          mu_solve_ms=1e3 * mu.timings["nmf_solve"], ranks_equal=same,
+                          launches=d_conv,
+                          finite=bool(np.isfinite(sh.audio).all()))
+    check(dY <= 2e-3 and same and res["convert"]["finite"],
+          f"mu_sharded conversion dY {dY:.3g}, ranks equal {same}")
+    for k in path:
+        path[k] += d_conv[k]
+    # the kernels at this rank's shard of the conversion's solve (F, K/n, D)
+    Fc, Kc, Dc = sh.nmf_shape
+    g = np.random.default_rng(13)
+    shard_case(torch.as_tensor(g.uniform(0.0, 0.02, (Fc, Kc // world)).astype(np.float32),
+                               device=dev),
+               torch.as_tensor(np.abs(g.standard_normal((Kc // world, Dc))).astype(np.float32),
+                               device=dev),
+               torch.as_tensor(np.abs(g.standard_normal((Fc, Dc))).astype(np.float32),
+                               device=dev))
+
+    # the main path's DTW batch, 8 pairs padded to 1408 frames, split over
+    # the ranks, against dtw_batch
+    rng = np.random.default_rng(10)
+    fa = rng.standard_normal((8, 1408, 20)).astype(np.float32)
+    fb = rng.standard_normal((8, 1408, 20)).astype(np.float32)
+    la = rng.integers(1200, 1409, 8).astype(np.int32)
+    lb = rng.integers(1200, 1409, 8).astype(np.int32)
+    dmesh = make_mesh(data=world, dict_=1)
+    dist.barrier()
+    _zero(fns)
+    rb = sharded_dtw_batch(fa, fb, la, lb, dmesh, device=dev)
+    d_batch = _counts(fns)
+    rb_ms = median_ms(lambda: sharded_dtw_batch(fa, fb, la, lb, dmesh, device=dev))
+    fa_d, fb_d = torch.as_tensor(fa, device=dev), torch.as_tensor(fb, device=dev)
+    one = dtw_batch(fa_d, fb_d, la, lb)
+    one_ms = median_ms(lambda: dtw_batch(fa_d, fb_d, la, lb))
+    eq = all(torch.equal(a, b) for a, b in zip(rb, one))
+    res["dtw_batch"] = dict(equal=eq, ms=rb_ms, single_ms=one_ms, launches=d_batch)
+    check(eq, "sharded_dtw_batch differs from dtw_batch")
+    for k in path:
+        path[k] += d_batch[k]
+
+    # one long pair, rows split over the ranks, in 512-column tiles; the
+    # single-device wavefront on the same C (the ranks' strips) on rank 0
+    ta, tb, cb = 32_768, 2000, 512
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((ta, 20)).astype(np.float32)
+    b = rng.standard_normal((tb, 20)).astype(np.float32)
+    dist.barrier()
+    _zero(fns)
+    dist_l, codes = sharded_dtw_long(a, b, dmesh, col_block=cb, device=dev)
+    d_long = _counts(fns)
+    long_ms = median_ms(lambda: sharded_dtw_long(a, b, dmesh, col_block=cb, device=dev))
+    dist_d, none = sharded_dtw_long(a, b, dmesh, col_block=cb, keep_dirs=False, device=dev)
+    only_ms = median_ms(lambda: sharded_dtw_long(a, b, dmesh, col_block=cb, keep_dirs=False,
+                                                 device=dev))
+    res["dtw_long"] = dict(ta=ta, tb=tb, col_block=cb, ms=long_ms, distance_only_ms=only_ms,
+                           distance=dist_l, launches=d_long)
+    check(dist_d == dist_l and none is None, f"distance-only {dist_d} != path mode {dist_l}")
+    for k in path:
+        path[k] += d_long[k]
+    if rank == 0:
+        R = ta // world
+        bp = torch.zeros((-(-tb // cb) * cb, 20), device=dev)
+        bp[:tb] = torch.as_tensor(b, device=dev)
+        C = torch.cat([cost_strip(torch.as_tensor(a[q * R:(q + 1) * R], device=dev), bp, tb)
+                       for q in range(world)])[:, :tb].contiguous()[None]
+        lens = torch.tensor([[ta, tb]], dtype=torch.int32, device=dev)
+        cost, dirs = dtw_cuda.dtw_wavefront(C, lens)
+        one_ms = median_ms(lambda: dtw_cuda.dtw_wavefront(C, lens), together=False)
+        sweep = dtw_cuda.tile_codes(dirs[0], ta, tb)
+        same_codes = torch.equal(sweep, codes)
+        pi, pj, plen = dtw_cuda.dtw_backtrace(dirs, lens)
+        n = int(plen[0])
+        hi, hj = backtrace_host(codes)
+        same_path = (np.array_equal(hi, pi[0, :n].cpu().numpy())
+                     and np.array_equal(hj, pj[0, :n].cpu().numpy()))
+        res["dtw_long"].update(single_ms=one_ms, codes_equal=same_codes,
+                               distance_equal=float(cost[0]) == dist_l, path_equal=same_path,
+                               path_cells=n)
+        check(same_codes and float(cost[0]) == dist_l and same_path,
+              f"sequence-parallel DTW vs one sweep: codes {same_codes}, distance {dist_l} vs "
+              f"{float(cost[0])}, path {same_path}")
+        del C, dirs, sweep
+    del codes
+    torch.cuda.empty_cache()
+
+    # data-parallel warp-train: 5 epochs on the 8 pairs, one utterance a
+    # rank a step
+    tcfg = load_config(overrides=["data.tar=TF1", "net.nb_epoch=5",
+                                  f"net.batch_size={world}"])
+    # a 1-epoch warm run first: the ranks are fresh processes, and the step
+    # rate is compared with a warm single-card run (:func:`single_train`)
+    train_warping_net(replace(tcfg, net=replace(tcfg.net, nb_epoch=1)),
+                      ArtifactStore(os.path.join(root, "train_warm")), data, nb_file=8,
+                      data_parallel=True, device=dev, run_root=os.path.join(root, "runs_w"))
+    store = ArtifactStore(os.path.join(root, "train"))
+    _zero(fns)
+    m = train_warping_net(tcfg, store, data, nb_file=8, data_parallel=True, device=dev,
+                          run_root=os.path.join(root, "runs"))
+    d_train = _counts(fns)
+    leaves = store.load(m["checkpoint"])    # the same store: its load waits for its writes
+    flat = torch.cat([torch.as_tensor(leaves[k], device=dev).reshape(-1)
+                      for k in sorted(leaves)])
+    flats = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(flats, flat)
+    losses = [h["train_loss"] for h in m["history"]]
+    res["train"] = dict(steps_per_s=m["steps_per_s"], steps=m["steps_run"],
+                        train_seconds=m["train_seconds"], losses=losses,
+                        minibatch=m["minibatch_utterances"],
+                        params_equal=all(torch.equal(f, flats[0]) for f in flats),
+                        launches=d_train)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0] and res["train"]["params_equal"],
+          f"data-parallel warp-train: losses {losses}, params equal "
+          f"{res['train']['params_equal']}")
+    for k in path:
+        path[k] += d_train[k]
+    res["path_launches"] = path
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(torch, np, dev, root: str, corpus: tuple) -> dict:
+    """Phase 9 (module docstring): the tile mode against its twin and timed
+    on the card, then a world of two gloo ranks sharing the card and one of
+    a single nccl rank, each rank a process (:func:`parallel_rank`).
+    Returns rank 0's measurements and the kernels' entries."""
+    from exemplars_vc_tpu_torch.align import dtw_cuda
+    from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
+
+    # the tile mode against its twin: every halo set, a ragged window, one
+    # row a lane (1000 rows) and eight (4100 rows); then timed and held
+    # against the twin at the long DTW's tile, 16,384 rows x 512 columns of
+    # a 2048-column strip
+    rng = np.random.default_rng(12)
+    err = 0.0
+    for rows, cols, ld in ((1000, 300, 517), (4100, 512, 2048)):
+        C = torch.as_tensor(rng.random((rows, ld)).astype(np.float32) * 4, device=dev)[:, 17:17 + cols]
+        top = torch.full((cols + 4,), dtw_cuda.BIG, device=dev)
+        top[:cols] = torch.as_tensor(rng.random(cols).astype(np.float32) * 50, device=dev)
+        corner = torch.tensor([3.0], device=dev)
+        left = torch.as_tensor(rng.random(rows).astype(np.float32) * 50, device=dev)
+        for codes in (True, False):
+            got = dtw_cuda.dtw_tile(C, top, corner, left, codes=codes)
+            want = dtw_cuda.dtw_tile_plain(C, top, corner, left, codes=codes)
+            for g, w in zip(got[:2], want[:2]):
+                err = max(err, float((g - w).abs().max()))
+                if not torch.equal(g, w):
+                    fail(f"tile mode {rows} x {cols} (codes {codes}): halo outputs differ "
+                         f"from the twin")
+            if codes and not torch.equal(got[2], want[2]):
+                fail(f"tile mode {rows} x {cols}: codes differ from the twin at "
+                     f"{int((got[2] != want[2]).sum())} cells")
+    R, cb, tb = 16_384, 512, 2000
+    fa = torch.as_tensor(rng.standard_normal((R, 20)).astype(np.float32), device=dev)
+    fb = torch.as_tensor(rng.standard_normal((2048, 20)).astype(np.float32), device=dev)
+    strip = pairwise_sqdist(fa, fb).contiguous()
+    C = strip[:, 512:1024]
+    top = torch.full((cb + 4,), dtw_cuda.BIG, device=dev)
+    top[:cb] = 1e3
+    left = torch.full((R,), 1e3, device=dev)
+    corner = torch.tensor([1e3], device=dev)
+    tile_ms = cuda_ms(lambda: dtw_cuda.dtw_tile(C, top, corner, left), reps=5)
+    tile_nc_ms = cuda_ms(lambda: dtw_cuda.dtw_tile(C, top, corner, left, codes=False), reps=5)
+    # the twin once at this tile (~15 s), timed and held against both variants
+    t0 = time.perf_counter()
+    want = dtw_cuda.dtw_tile_plain(C, top, corner, left)
+    torch.cuda.synchronize()
+    tile_plain_ms = (time.perf_counter() - t0) * 1e3
+    for codes in (True, False):
+        got = dtw_cuda.dtw_tile(C, top, corner, left, codes=codes)
+        for part, g, w in zip(("bottom row", "right column"), got[:2], want[:2]):
+            err = max(err, float((g - w).abs().max()))
+            if not torch.equal(g, w):
+                fail(f"tile mode {R} x {cb} (codes {codes}): {part} differs from the twin")
+        if codes and not torch.equal(got[2], want[2]):
+            fail(f"tile mode {R} x {cb}: codes differ from the twin at "
+                 f"{int((got[2] != want[2]).sum())} cells")
+    del got, want
+    # bytes: the tile's costs and halos read once, its codes, bottom row and
+    # right column written once; operations: ~6 a cell (3 compares, 2 mins,
+    # an add), far under the bytes' time
+    cells = R * cb
+    tile_bound, tile_by = bound(4 * (cells + 2 * cb + 2 * R) + cells, 6 * cells)
+    say(f"parallel: tile mode equal to its twin at 1000 x 300, 4100 x 512 and the long DTW's "
+        f"{R} x {cb} tile of a 2048-column strip (codes, bottom row, right column; max |err| "
+        f"{err}); at that tile {tile_ms:.4f} ms with codes, {tile_nc_ms:.4f} ms without, the twin "
+        f"{tile_plain_ms:.1f} ms, bound {tile_bound:.4f} ms ({tile_by}), "
+        f"{100 * tile_bound / tile_ms:.2f} % of it")
+    del strip, C, fa, fb
+    torch.cuda.empty_cache()
+
+    single = single_train(dev, root, corpus[0], 2)
+    worlds = {(world, backend): run_world(world, backend, root, corpus)
+              for world, backend in ((2, "gloo"), (1, "nccl"))}
+    ranks = worlds[(2, "gloo")]
+    launches = ranks[0]["path_launches"]
+    if min(launches.values()) < 1:
+        fail(f"phase 9: a kernel of the path was not launched: {launches}")
+    if single["steps_per_s"] <= 0:
+        fail("phase 9: single-device warp-train took no step")
+    shard_err = {name: max(case[name]["max_abs_err"] for ws in worlds.values() for r in ws
+                           for case in r["shard_kernels"])
+                 for name in ("nmf_recon", "nmf_update")}
+    return dict(launches=launches, tile_ms=tile_ms, tile_nocodes_ms=tile_nc_ms,
+                tile_plain_ms=tile_plain_ms, tile_bound_ms=tile_bound, tile_max_abs_err=err,
+                shard_max_abs_err=shard_err, single_train=single, ranks=ranks,
+                nccl=worlds[(1, "nccl")][0])
+
+
+def single_train(dev, root: str, data: str, batch: int) -> dict:
+    """Phase 9's data-parallel warp-train on one card: the same 5 epochs on
+    the 8 pairs with ``batch`` utterances a step, after a 1-epoch warm run."""
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.models.train import train_warping_net
+
+    def train(epochs: int, tag: str) -> dict:
+        cfg = load_config(overrides=["data.tar=TF1", f"net.nb_epoch={epochs}",
+                                     f"net.batch_size={batch}"])
+        return train_warping_net(cfg, ArtifactStore(os.path.join(root, f"p9_{tag}")), data,
+                                 nb_file=8, device=dev, run_root=os.path.join(root, "p9_runs"))
+
+    train(1, "train1_warm")
+    single = train(5, "train1")
+    say(f"parallel: warp-train on one card, 5 epochs, {batch} utterances a step: "
+        f"{single['steps_per_s']} steps/s, {single['steps_run']} steps, "
+        f"{single['train_seconds']:.4f} s")
+    return single
+
+
+def run_world(world: int, backend: str, root: str, corpus: tuple) -> list[dict]:
+    """A world of ``world`` :func:`parallel_rank` processes on ``backend``;
+    prints and returns their measurements, by rank."""
+    import torch.multiprocessing as mp
+
+    out = os.path.join(root, f"p9_{backend}{world}")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    mp.spawn(parallel_rank, args=(world, _free_port(), backend, out, corpus[0], corpus[1]),
+             nprocs=world, join=True)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"{r}.json")) as f:
+            ranks.append(json.load(f))
+    say(f"parallel: world of {world} {backend} rank(s) in {time.perf_counter() - t0:.2f} s")
+    for r, res in enumerate(ranks):
+        for key in ("nmf", "shard_kernels", "convert", "dtw_batch", "dtw_long", "train"):
+            if key in res:
+                say(f"parallel [{backend} {world}, rank {r}] {key}: {json.dumps(res[key])}")
+        say(f"parallel [{backend} {world}, rank {r}] path launches "
+            f"{json.dumps(res['path_launches'])}")
+    return ranks
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1737,6 +2192,7 @@ def main() -> None:
         phase_small_agreement(torch, np, dev, root)
         world = phase_world(torch, np, dev, root, corpus, counted, fused)
         stage02 = phase_stage02(torch, np, dev, root, corpus, counted, fused)
+        par = phase_parallel(torch, np, dev, root, corpus)
     if "jax" in sys.modules:
         fail("jax was imported")
     say(card)    # again beside the numbers, for a reader of the output's end
@@ -1746,12 +2202,20 @@ def main() -> None:
          "replaces": sources[name][1], "launches": launches[name],
          "launches_serving": serving[name], "launches_world": world[name],
          "launches_stage02": stage02["launches"][name],
+         "launches_parallel": par["launches"].get(name, 0),
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
          **({"dfw_ms": stage02["dfw"][name[4:]]["ms"],
              "dfw_bound_ms": stage02["dfw"][name[4:]]["bound_ms"]}
-            if name.startswith("dtw_") else {})}
+            if name.startswith("dtw_") else {}),
+         **({"tile_launches_parallel": par["launches"]["dtw_tile"], "tile_ms": par["tile_ms"],
+             "tile_nocodes_ms": par["tile_nocodes_ms"], "tile_plain_ms": par["tile_plain_ms"],
+             "tile_bound_ms": par["tile_bound_ms"],
+             "tile_max_abs_err": par["tile_max_abs_err"]}
+            if name == "dtw_wavefront" else {}),
+         **({"shard_max_abs_err": par["shard_max_abs_err"][name]}
+            if name in par["shard_max_abs_err"] else {})}
         for name in sources]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -108,15 +108,24 @@ def _check_lens(lens: torch.Tensor, n: int, ta: int, tb: int, device,
 # wavefront DP
 # ---------------------------------------------------------------------------
 
-def _plain_band(C: torch.Tensor, lens: torch.Tensor, i0: int, i1: int, top, dirs, final):
+def _plain_band(C: torch.Tensor, lens: torch.Tensor, i0: int, i1: int, top, dirs, final,
+                left=None, corner=None, origin: bool | None = None, right=None):
     """One row band [i0, i1) of the twin, in the band's own indices (i' =
     i - i0, d' = d - i0, j = d' - i'): ``top`` (N, Tb) holds row i0-1's costs
-    (None for the first band), the codes go to ``dirs[:, i0 + d', i0:i1]``,
-    ``final`` takes the cost of the pairs whose row la-1 is in the band.
-    Returns the band's last row's costs (N, Tb)."""
+    (None for the first band), the codes go to ``dirs[:, i0 + d', i0:i1]``
+    (None: no codes), ``final`` takes the cost of the pairs whose row la-1 is
+    in the band. The tile mode's halos: ``left`` (N, rows) holds column -1's
+    costs of the band's rows and ``corner`` (N,) the cell above-left of the
+    band's first cell (None: BIG); ``origin`` makes the first cell the DP's
+    origin (best = 0; default: the first band); ``right`` (N, rows), where
+    given, takes the last column's costs. Returns the band's last row's
+    costs (N, Tb)."""
     n, ta, tb = C.shape
     rows = i1 - i0
     dev = C.device
+    origin = i0 == 0 if origin is None else origin
+    if corner is not None:
+        corner = corner.reshape(-1)[:1].expand(n)
     la_band = lens[:, 0].long() - i0
     has_end = (la_band >= 1) & (la_band <= rows)
     la = la_band.clamp(0, rows)
@@ -130,27 +139,41 @@ def _plain_band(C: torch.Tensor, lens: torch.Tensor, i0: int, i1: int, top, dirs
     prev = torch.full((n, rows), BIG, dtype=torch.float32, device=dev)
     prev2 = prev.clone()
     big_col = torch.full((n, 1), BIG, dtype=torch.float32, device=dev)
+    corner_col = big_col if corner is None else corner.reshape(n, 1)
+    if left is not None:
+        # row i's column -1 and row i-1's (the diag of column 0), BIG above
+        left_dg = torch.cat([corner_col, left[:, :-1]], dim=1)
     last = torch.full((n, tb), BIG, dtype=torch.float32, device=dev)
     for d in range(_band_diagonals(ta, tb, i0, i1)):
         j = d - i_idx
         c = Cb[:, i_idx, j.clamp(0, tb - 1)]
         c = torch.where((j >= 0)[None, :] & (j[None, :] < lb[:, None]) & rows_ok, c, big)
-        left = torch.where((j >= 1)[None, :], prev, big)
+        left_n = torch.where((j >= 1)[None, :], prev, big)
         # row i0-1 at the step before (up, column d) and the one before that (diag)
         up_head = top[:, d:d + 1] if top is not None and d < tb else big_col
-        dg_head = top[:, d - 1:d] if top is not None and 1 <= d <= tb else big_col
+        dg_head = (top[:, d - 1:d] if top is not None and 1 <= d <= tb
+                   else corner_col if d == 0 else big_col)
         up = torch.cat([up_head, prev[:, :-1]], dim=1)
         dg = torch.where((j >= 1)[None, :], torch.cat([dg_head, prev2[:, :-1]], dim=1), big)
-        best = torch.minimum(torch.minimum(dg, up), left)
+        if left is not None:
+            at0 = (j == 0)[None, :]
+            left_n = torch.where(at0, left, left_n)
+            dg = torch.where(at0 & (i_idx >= 1)[None, :], left_dg, dg)
+        if d == 0:
+            dg[:, 0] = corner_col[:, 0]
+        best = torch.minimum(torch.minimum(dg, up), left_n)
         choice = torch.where(best == dg, 0, torch.where(best == up, 1, 2))
-        if d == 0 and i0 == 0:
+        if d == 0 and origin:
             best[:, 0] = 0.0
         new = torch.clamp(c + torch.clamp(best, max=BIG), max=BIG)
         new = torch.where((j >= 0)[None, :], new, big)
-        dirs[:, i0 + d, i0:i1] = choice.to(torch.int8)
+        if dirs is not None:
+            dirs[:, i0 + d, i0:i1] = choice.to(torch.int8)
         final.copy_(torch.where(has_end & (end_d == d), new[ar, (la - 1).clamp(min=0)], final))
         if 0 <= d - (rows - 1) < tb:
             last[:, d - (rows - 1)] = new[:, rows - 1]
+        if right is not None and 0 <= d - (tb - 1) < rows:
+            right[:, d - (tb - 1)] = new[:, d - (tb - 1)]
         prev2, prev = prev, new
     return last
 
@@ -229,6 +252,105 @@ def dtw_wavefront(C: torch.Tensor, lens: torch.Tensor, lens_host=None, *,
 
 
 dtw_wavefront.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one tile of a longer DP: the wavefront's tile mode
+# ---------------------------------------------------------------------------
+
+def tile_codes(skewed: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The (rows, cols) codes of a tile, a view of its skewed (rows+cols-1,
+    rows) layout: code (i, j) sits at diagonal i + j, position i."""
+    return skewed.as_strided((rows, cols), (rows + 1, rows), skewed.storage_offset())
+
+
+def _check_tile(C, top, corner, left) -> tuple[int, int]:
+    if C.dtype != torch.float32 or C.dim() != 2 or C.stride(1) != 1:
+        raise ValueError(f"C must be a float32 (rows, cols) window with unit column stride, "
+                         f"got {C.dtype} {tuple(C.shape)} strides {C.stride()}")
+    rows, cols = C.shape
+    for name, t, n in (("top", top, cols), ("corner", corner, 1), ("left", left, rows)):
+        if t is not None and (t.dtype != torch.float32 or t.dim() != 1 or t.numel() < n
+                              or not t.is_contiguous() or t.device != C.device):
+            raise ValueError(f"{name} must be a contiguous float32 vector of >= {n} on "
+                             f"{C.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return rows, cols
+
+
+def dtw_tile_plain(C: torch.Tensor, top=None, corner=None, left=None, origin: bool = False,
+                   codes: bool = True):
+    """Plain twin of the wavefront's tile mode: the DP over one (rows, cols)
+    window C of a longer cost matrix, with its halos.
+
+    ``top``: the costs of the row above the window (its first ``cols``
+    values are read); ``corner``: one value, the cell above-left; ``left``
+    (rows,): the column left of the window; each None means BIG (the
+    matrix's edge). ``origin``: the window's first cell is the DP's origin.
+    Returns (bottom row (cols,), right column (rows,), codes (rows, cols)
+    int8 or None with ``codes=False``). The same cells, neighbours and
+    arithmetic as one sweep, so tiles in a wavefront schedule give the
+    sweep's costs and codes to the byte."""
+    rows, cols = _check_tile(C, top, corner, left)
+    dev = C.device
+    lens = torch.tensor([[rows, cols]], dtype=torch.int32, device=dev)
+    dirs = (torch.empty((1, rows + cols - 1, rows), dtype=torch.int8, device=dev)
+            if codes else None)
+    final = torch.full((1,), BIG, dtype=torch.float32, device=dev)
+    right = torch.full((1, rows), BIG, dtype=torch.float32, device=dev)
+    bottom = _plain_band(C[None], lens, 0, rows, None if top is None else top[None, :cols],
+                         dirs, final, left=None if left is None else left[None],
+                         corner=corner, origin=origin, right=right)
+    return bottom[0], right[0], (tile_codes(dirs[0], rows, cols) if codes else None)
+
+
+def dtw_tile(C: torch.Tensor, top=None, corner=None, left=None, origin: bool = False,
+             codes: bool = True):
+    """The wavefront's tile mode; same contract as :func:`dtw_tile_plain`.
+
+    On a CUDA tensor this launches ``evc_dtw_tile`` (counted in
+    ``dtw_tile.launches``): ``dtw_wavefront_kernel``'s tile variant, one
+    pair of ``rows`` rows with the :func:`dtw_wavefront_plan` of its rows,
+    C read at its row stride, the left halo read by each row's lane, the
+    bottom row and the right column written out; ``codes=False`` runs the
+    variant that stores no codes. ``top`` must then hold ``cols`` + 3
+    readable floats (the kernel reads it in 16-byte blocks; the values past
+    ``cols`` are not used) and start 16-byte aligned. A launch the C entry
+    refuses raises. A CPU tensor takes the twin."""
+    if C.device.type == "cpu":
+        return dtw_tile_plain(C, top, corner, left, origin, codes)
+    if C.device.type != "cuda":
+        raise ValueError(f"dtw_tile: unsupported device {C.device}")
+    rows, cols = _check_tile(C, top, corner, left)
+    if rows > MAX_TA:
+        raise ValueError(f"dtw_tile: {rows} rows > {MAX_TA}")
+    if top is not None and (top.numel() < cols + 3 or top.data_ptr() % 16):
+        raise ValueError(f"dtw_tile: top needs {cols + 3} floats from a 16-byte boundary")
+    plan = dtw_wavefront_plan(1, rows, torch.cuda.get_device_properties(C.device)
+                              .multi_processor_count)
+    lib = load_library("dtw_wavefront")
+    fn = lib.evc_dtw_tile
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, ci, ci, vp, vp, vp, ci, vp, vp, ci, ci, ci, vp, vp]
+    bottom = torch.empty((cols,), dtype=torch.float32, device=C.device)
+    right = torch.empty((rows,), dtype=torch.float32, device=C.device)
+    dirs = (torch.empty((rows + cols - 1, rows), dtype=torch.int8, device=C.device)
+            if codes else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(C.device):
+        stream = torch.cuda.current_stream(C.device).cuda_stream
+        code = fn(C.data_ptr(), C.stride(0), rows, cols, ptr(top), ptr(corner), ptr(left),
+                  int(origin), bottom.data_ptr(), right.data_ptr(), plan["rows_per_lane"],
+                  plan["cluster"], plan["warps_per_cta"], ptr(dirs), stream)
+    check(code, "dtw_tile", lib)
+    dtw_tile.launches += 1
+    return bottom, right, (tile_codes(dirs, rows, cols) if codes else None)
+
+
+dtw_tile.launches = 0
 
 
 # ---------------------------------------------------------------------------

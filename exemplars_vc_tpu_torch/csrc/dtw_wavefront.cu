@@ -64,7 +64,8 @@
 // slower (the chain's fill, ~44 warps x a chunk, grows with the chunk).
 // Two variants are compiled: R = 1 covers Ta up to 8 CTAs x 16 warps x 32
 // lanes = 4096, R = 8 up to 32,768 (2, 4 rows a lane were slower), each
-// with and without the row-band boundaries below (BAND).
+// in four modes (MODE): one sweep, the row-band boundaries below (BAND),
+// and the tile mode below with and without codes.
 //
 // Row bands. A launch sweeps the rows [row0, row0 + rows) of the pair; a
 // longer source runs as bands of at most 32,768 rows, one launch a band, in
@@ -80,6 +81,23 @@
 // j > tb, all three neighbours BIG, code 0, which the caller zeroes once.
 // The final cost is written by the band that holds row la-1 only. Code
 // offsets are 64-bit throughout: past 32,768 rows the codes pass 2^31 bytes.
+//
+// Tile mode (the sequence-parallel DTW's step: one rank's rows x one block
+// of columns). The launch is one pair of `rows` rows and `tb` = the tile's
+// columns, read from a wider cost matrix at the row stride `ldc`; its codes
+// go to a (rows + tb - 1, rows) buffer in the tile's own skewed layout. On
+// top of the band's boundary row (`bin`, the row above the tile, BIG for the
+// matrix's first rows) it takes the column left of the tile (`lin`, one
+// float a row) and the corner above-left (`cin`). Row i's column -1 is the
+// value its lane holds at diagonal i - 1, where one sweep holds BIG: the lane
+// keeps its rows' halo values in registers and selects them there, so the
+// next step's left (row i) and diag (row i + 1) neighbours are the halo's,
+// and the corner is the head lane's diag at step 0. The tile's right column
+// (`rout`) is each row's value at diagonal i + tb - 1, kept by a select; the
+// bottom row goes out as a band's last row does. The variant without codes
+// (the distance-only DTW) stages them but stores none. Each cell sees the same
+// neighbours and arithmetic as in one sweep, so tiles in a wavefront
+// schedule give the sweep's costs and codes to the byte.
 //
 // The backtrace walks the path once, from (la-1, lb-1) to the origin, with
 // one CTA a pair. The codes it reads are staged into shared memory a window
@@ -196,14 +214,22 @@ struct DtwShared {
 // chunk is the last block of the chunk before, so a chunk costs K/4 vector
 // loads a row, issued one chunk before use; the K values are picked out by
 // the row's alignment phase (constant along the row, as K % 4 == 0).
-template <int R, int K, bool BAND>
+// MODE: 0 one sweep, 1 a row band, 2 a tile, 3 a tile without codes
+template <int R, int K, int MODE>
 struct DtwLane {
   static_assert(K % 4 == 0 && K <= EVC_DTW_MAX_K, "chunk");
   static_assert(R == 1 || R == 8, "rows a lane");
   static constexpr int NB = K / 4;   // new blocks a chunk
+  static constexpr bool BAND = MODE >= 1;    // reads bin, writes bout
+  static constexpr bool TILE = MODE >= 2;    // left halo, corner, right column, row stride
+  static constexpr bool CODES = MODE != 3;
   const float* Cn;
   int8_t* dn;
   int ta, tb, la, lb, n_diag, end_d, i0, lane, warp;
+  int ldc;                  // row stride of C (tb but in the tile mode)
+  float corner;             // the tile's corner (the head lane's diag at step 0)
+  float lft[R];             // the tile's left halo for this lane's rows
+  float rv[R];              // this lane's rows' values in the tile's last column
   int rows;                 // rows of this band
   int row0;                 // global index of the band's first row
   bool vec16;               // the codes of a diagonal start 16-byte aligned
@@ -246,9 +272,11 @@ struct DtwLane {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = i0 + r;
-      v[r] = EVC_BIG;
-      u[r] = (row0 + i == 0) ? 0.0f : EVC_BIG;   // the origin's diag: best = 0, code 0
-      rowp[r] = Cn + (size_t)i * tb;
+      v[r] = (TILE && i == 0) ? lft[r] : EVC_BIG;   // column -1 at diagonal -1
+      // the origin's diag: best = 0, code 0; a tile's first row: the corner
+      u[r] = TILE ? (i == 0 ? corner : EVC_BIG) : ((row0 + i == 0) ? 0.0f : EVC_BIG);
+      if (TILE) rv[r] = EVC_BIG;
+      rowp[r] = Cn + (size_t)i * ldc;
       phi[r] = (int)((reinterpret_cast<uintptr_t>(rowp[r]) >> 2) & 3);
       elem[r] = (phi[r] - i) & 3;   // chunks start on multiples of 4
       lb_row[r] = i < la ? lb : 0;
@@ -383,7 +411,10 @@ struct DtwLane {
         const unsigned long long code = (best == dg) ? 0ull : ((best == up) ? 1ull : 2ull);
         const float nv = fminf(c[r][k] + fminf(best, EVC_BIG), EVC_BIG);
         u[r] = up;
-        v[r] = (!EDGE || d >= i0 + r) ? nv : EVC_BIG;
+        // column -1 holds BIG, or in a tile the left halo (at diagonal i - 1)
+        v[r] = (!EDGE || d >= i0 + r) ? nv
+                                     : ((TILE && d == i0 + r - 1) ? lft[r] : EVC_BIG);
+        if (TILE) rv[r] = (d == i0 + r + tb - 1) ? v[r] : rv[r];
         pack |= code << (8 * r);
         if (EDGE) final_cost = (r == end_r && d == end_d) ? v[r] : final_cost;
       }
@@ -393,6 +424,9 @@ struct DtwLane {
         for (int r = 0; r < R; ++r) o = r == out_r ? v[r] : o;
         ost[k] = o;
       }
+      // staged in every mode (the variant without codes only skips the
+      // flush): without the stores ptxas gave that variant 32 registers and
+      // 6 KB of spills at R = 8, and it ran 3x slower than the one with codes
       uint8_t* st = stage + k * 32 * R + lane * R;
       if (R == 1) *st = (uint8_t)pack;
       if (R == 8) *reinterpret_cast<unsigned long long*>(st) = pack;
@@ -407,7 +441,7 @@ struct DtwLane {
         if (j >= 0 && j < tb) bout[j] = ost[k];
       }
     }
-    flush<EDGE>(d0);
+    if (CODES) flush<EDGE>(d0);
   }
 
   // The chunk's codes, staged K diagonals x 32R rows, leave in as few
@@ -459,12 +493,14 @@ struct DtwLane {
   }
 };
 
-template <int R, int K, bool BAND>
+template <int R, int K, int MODE>
 __global__ void __launch_bounds__(EVC_DTW_MAX_WARPS * 32)
     dtw_wavefront_kernel(const float* __restrict__ C, const int* __restrict__ lens, int ta,
                          int tb, int row0, int rows, int n_diag, const float* __restrict__ bin,
                          float* __restrict__ bout, int bstride, float* __restrict__ cost,
-                         int8_t* __restrict__ dirs) {
+                         int8_t* __restrict__ dirs, int ldc, const float* __restrict__ cin,
+                         const float* __restrict__ lin, float* __restrict__ rout, int origin) {
+  constexpr bool TILE = MODE >= 2;
   __shared__ DtwShared sh;
   __shared__ __align__(16) uint8_t stage[EVC_DTW_MAX_WARPS][K * 32 * R];
   cg::cluster_group cluster = cg::this_cluster();
@@ -488,23 +524,25 @@ __global__ void __launch_bounds__(EVC_DTW_MAX_WARPS * 32)
   cluster.sync();   // every CTA's barriers are set before a peer signals them
 
   if (g < n_warps) {
-    DtwLane<R, K, BAND> s;
+    DtwLane<R, K, MODE> s;
     s.ta = ta;
     s.tb = tb;
     s.rows = rows;
     s.row0 = row0;
     // lengths relative to the band: rows from la on cost BIG; the final cost
     // is this band's only where it holds row la-1
-    const int la_band = lens[2 * n] - row0;
+    // a tile is one pair of all its rows and columns (no lens)
+    const int la_band = TILE ? rows : lens[2 * n] - row0;
     s.la = min(max(la_band, 0), rows);
-    s.lb = lens[2 * n + 1];
+    s.lb = TILE ? tb : lens[2 * n + 1];
     s.n_diag = n_diag;
     const bool has_end = la_band >= 1 && la_band <= rows;
     s.end_d = has_end ? la_band + s.lb - 2 : -1;
     s.lane = (int)(threadIdx.x & 31);
     s.warp = warp;
     s.i0 = (g * 32 + s.lane) * R;
-    s.Cn = C + (size_t)n * ta * tb + (size_t)row0 * tb;
+    s.ldc = ldc;
+    s.Cn = C + (size_t)n * ta * ldc + (size_t)row0 * ldc;
     s.dn = dirs + (size_t)n * (ta + tb - 1) * ta + (size_t)row0 * ta + row0;
     s.vec16 = ta % 16 == 0 && row0 % 16 == 0;
     s.g = g;
@@ -526,8 +564,14 @@ __global__ void __launch_bounds__(EVC_DTW_MAX_WARPS * 32)
     s.peer_full = s.cons_link ? evc_mapa(evc_smem(&sh.full[0]), rank + 1) : 0u;
     s.peer_sink = s.prod_link ? evc_mapa(evc_smem(&sh.sink), rank - 1) : 0u;
     s.peer_empty = s.prod_link ? evc_mapa(evc_smem(&sh.empty[0]), rank - 1) : 0u;
-    if (BAND)
+    if (MODE >= 1)
       for (int q = 0; q < K / 4; ++q) s.bq[q] = make_float4(EVC_BIG, EVC_BIG, EVC_BIG, EVC_BIG);
+    if (TILE) {
+      s.corner = origin ? 0.0f : (cin != nullptr ? cin[0] : EVC_BIG);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        s.lft[r] = (lin != nullptr && s.i0 + r < rows) ? lin[s.i0 + r] : EVC_BIG;
+    }
     s.init_rows();
     s.fetch(0);
     // chunks where the warp's last row has started, before the last diagonal
@@ -542,7 +586,12 @@ __global__ void __launch_bounds__(EVC_DTW_MAX_WARPS * 32)
         s.template chunk<false>(d0);
     }
     s.drain((s.n_diag + K - 1) / K);
-    if (s.end_r >= 0) cost[n] = s.final_cost;
+    if (s.end_r >= 0 && cost != nullptr) cost[n] = s.final_cost;
+    if (TILE) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (s.i0 + r < rows) rout[s.i0 + r] = s.rv[r];
+    }
   }
   cluster.sync();   // no CTA leaves while a peer may still signal it
 }
@@ -697,11 +746,14 @@ __global__ void __launch_bounds__(EVC_BT_THREADS)
   if (t == 0) path_len[n] = len;
 }
 
-template <int R, int K, bool BAND>
+template <int R, int K, int MODE>
 static cudaError_t evc_launch_wavefront(const float* C, const int* lens, int n, int ta, int tb,
                                         int row0, int rows, int n_diag, const float* bin,
                                         float* bout, int bstride, int cluster, int warps,
-                                        float* cost, int8_t* dirs, cudaStream_t stream) {
+                                        float* cost, int8_t* dirs, cudaStream_t stream,
+                                        int ldc, const float* cin = nullptr,
+                                        const float* lin = nullptr, float* rout = nullptr,
+                                        int origin = 0) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -714,8 +766,8 @@ static cudaError_t evc_launch_wavefront(const float* C, const int* lens, int n, 
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, dtw_wavefront_kernel<R, K, BAND>, C, lens, ta, tb, row0, rows,
-                            n_diag, bin, bout, bstride, cost, dirs);
+  return cudaLaunchKernelEx(&cfg, dtw_wavefront_kernel<R, K, MODE>, C, lens, ta, tb, row0, rows,
+                            n_diag, bin, bout, bstride, cost, dirs, ldc, cin, lin, rout, origin);
 }
 
 extern "C" {
@@ -747,15 +799,55 @@ int evc_dtw_wavefront(const float* C, const int* lens, int n, int ta, int tb, in
   const bool band = bin != nullptr || bout != nullptr;
   cudaError_t e;
   if (rows_per_lane == 1)
-    e = band ? evc_launch_wavefront<1, 16, true>(C, lens, n, ta, tb, row0, rows, n_diag, bin,
-                                                 bout, bstride, cluster, warps, cost, dirs, s)
-             : evc_launch_wavefront<1, 16, false>(C, lens, n, ta, tb, row0, rows, n_diag, bin,
-                                                  bout, bstride, cluster, warps, cost, dirs, s);
+    e = band ? evc_launch_wavefront<1, 16, 1>(C, lens, n, ta, tb, row0, rows, n_diag, bin, bout,
+                                              bstride, cluster, warps, cost, dirs, s, tb)
+             : evc_launch_wavefront<1, 16, 0>(C, lens, n, ta, tb, row0, rows, n_diag, bin, bout,
+                                              bstride, cluster, warps, cost, dirs, s, tb);
   else if (rows_per_lane == 8)
-    e = band ? evc_launch_wavefront<8, 4, true>(C, lens, n, ta, tb, row0, rows, n_diag, bin,
-                                                bout, bstride, cluster, warps, cost, dirs, s)
-             : evc_launch_wavefront<8, 4, false>(C, lens, n, ta, tb, row0, rows, n_diag, bin,
-                                                 bout, bstride, cluster, warps, cost, dirs, s);
+    e = band ? evc_launch_wavefront<8, 4, 1>(C, lens, n, ta, tb, row0, rows, n_diag, bin, bout,
+                                             bstride, cluster, warps, cost, dirs, s, tb)
+             : evc_launch_wavefront<8, 4, 0>(C, lens, n, ta, tb, row0, rows, n_diag, bin, bout,
+                                             bstride, cluster, warps, cost, dirs, s, tb);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// One tile of a longer DP (the tile mode above): C is a (rows, cols) window
+// read at row stride ldc; top (>= cols + 3 floats, 16-byte aligned), corner
+// (one float) and left (rows) are the halos, each null for BIG; origin makes
+// the window's first cell the DP's origin. Writes bottom (cols), right
+// (rows) and, unless dirs is null, the tile's codes (rows + cols - 1, rows),
+// skewed. The plan as for evc_dtw_wavefront, covering rows; any other is
+// refused (cudaErrorInvalidValue) before a launch.
+int evc_dtw_tile(const float* C, int ldc, int rows, int cols, const float* top,
+                 const float* corner, const float* left, int origin, float* bottom, float* right,
+                 int rows_per_lane, int cluster, int warps, int8_t* dirs, void* stream) {
+  if (rows < 1 || cols < 1 || ldc < cols || cluster < 1 || cluster > EVC_DTW_MAX_CLUSTER ||
+      warps < 1 || warps > EVC_DTW_MAX_WARPS || bottom == nullptr || right == nullptr ||
+      (long long)cluster * warps * 32 * rows_per_lane < (long long)rows ||
+      (reinterpret_cast<uintptr_t>(top) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_diag = rows + cols - 1;
+  cudaError_t e;
+  if (rows_per_lane == 1)
+    e = dirs != nullptr
+            ? evc_launch_wavefront<1, 16, 2>(C, nullptr, 1, rows, cols, 0, rows, n_diag, top,
+                                             bottom, 0, cluster, warps, nullptr, dirs, s, ldc,
+                                             corner, left, right, origin)
+            : evc_launch_wavefront<1, 16, 3>(C, nullptr, 1, rows, cols, 0, rows, n_diag, top,
+                                             bottom, 0, cluster, warps, nullptr, dirs, s, ldc,
+                                             corner, left, right, origin);
+  else if (rows_per_lane == 8)
+    e = dirs != nullptr
+            ? evc_launch_wavefront<8, 4, 2>(C, nullptr, 1, rows, cols, 0, rows, n_diag, top,
+                                            bottom, 0, cluster, warps, nullptr, dirs, s, ldc,
+                                            corner, left, right, origin)
+            : evc_launch_wavefront<8, 4, 3>(C, nullptr, 1, rows, cols, 0, rows, n_diag, top,
+                                            bottom, 0, cluster, warps, nullptr, dirs, s, ldc,
+                                            corner, left, right, origin);
   else
     return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

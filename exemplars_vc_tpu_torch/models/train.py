@@ -9,9 +9,15 @@ minibatches of ``batch_size`` utterances, a held-out 20 % evaluated each
 epoch, best-loss checkpoints and patience early stopping. Utterances are
 padded and masked into one batch on the device.
 
+``data_parallel=True`` in a process group of W > 1 ranks splits each
+minibatch over the ranks (one process a rank, each on its own device or
+sharing one): each rank runs its slice, the gradients of the summed loss are
+all-reduced (SUM), and every rank takes the same RMSprop step, so the
+parameters and the optimizer state stay equal on every rank.
+
 Left out: the orbax checkpoint backend (the JAX ecosystem's library; the
 npz layout here is the JAX package's ``leaf_i`` layout, so checkpoints go
-both ways), and training over several devices (ROADMAP queue 1 item 12).
+both ways).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from exemplars_vc_tpu_torch.align.exemplar import gather_aligned_batch
 from exemplars_vc_tpu_torch.config import Config
@@ -95,13 +102,26 @@ def l1_sum(net: WarpingNet, x: torch.Tensor, y: torch.Tensor,
 
 
 def update_step(net: WarpingNet, opt: torch.optim.Optimizer, x: torch.Tensor,
-                y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """One optimizer step on the minibatch; returns its loss (before the step)."""
+                y: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
+    """One optimizer step on the minibatch; returns its loss (before the
+    step). With a process ``group`` each rank passes its slice of the
+    minibatch: the loss is a sum, so the gradients and the loss are
+    all-reduced with SUM before the step, in one buffer (one collective a
+    step)."""
     opt.zero_grad(set_to_none=True)
     loss = l1_sum(net, x, y, mask)
     loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        grads = [p.grad for p in net.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        parts = flat.split([g.numel() for g in grads] + [1])
+        for g, part in zip(grads, parts):
+            g.copy_(part.view_as(g))
+        loss = parts[-1][0]
     opt.step()
-    return loss.detach()
+    return loss
 
 
 def eval_loss(net: WarpingNet, x: torch.Tensor, y: torch.Tensor,
@@ -148,12 +168,15 @@ def train_warping_net(cfg: Config, store: ArtifactStore, data_path: str,
 
     ``features`` other than "dict" trains on that aligned conversion feature
     (e.g. "stft"); the checkpoint and normalisation artifacts then carry the
-    feature's name. ``data_parallel`` trains as without it on one device (as
-    the JAX package does with one); several cards raise (queue 1 item 12)."""
+    feature's name. ``data_parallel`` in a process group of W > 1 ranks
+    (every rank calls this with the same arguments, its own ``device`` and
+    its own store) rounds the minibatch up to a multiple of W and gives each
+    rank its contiguous slice (module docstring); in a world of one process
+    it trains as without it, as the JAX package does on one device."""
     device = resolve_device(device)
-    if data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("data-parallel training over several cards is not "
-                                  "ported yet (ROADMAP queue 1 item 12)")
+    group, n_ranks, rank = None, 1, 0
+    if data_parallel and dist.is_initialized() and dist.get_world_size() > 1:
+        group, n_ranks, rank = dist.group.WORLD, dist.get_world_size(), dist.get_rank()
     src, tar, mask = make_warping_dataset(cfg, store, data_path, nb_file=nb_file,
                                           features=features, device=device)
     idx_train, idx_test = train_test_split(src.shape[0])
@@ -188,6 +211,9 @@ def train_warping_net(cfg: Config, store: ArtifactStore, data_path: str,
     ckpt_name = f"{cfg.net.checkpoint_name}_warping{feat_tag}"
     n_train = xs_tr.shape[0]
     mb = max(1, cfg.net.batch_size)   # utterances a step (the reference: one)
+    # the minibatch fills the ranks: rounded up to a multiple of their count
+    mb = -(-max(mb, n_ranks) // n_ranks) * n_ranks
+    share = slice(rank * (mb // n_ranks), (rank + 1) * (mb // n_ranks))
     rng = np.random.default_rng(seed + 1)
     steps_run = 0
     with Timer(device, fence=True) as t_total:
@@ -199,8 +225,9 @@ def train_warping_net(cfg: Config, store: ArtifactStore, data_path: str,
                 if len(idx) < mb:
                     # the true tail, then wrap from the start (cycling if mb > n_train)
                     idx = np.concatenate([idx, np.resize(order, mb - len(idx))])
-                sel = on_device(idx)
-                tr_loss += float(update_step(net, opt, xs_tr[sel], ys_tr[sel], m_tr[sel]))
+                sel = on_device(idx[share])
+                tr_loss += float(update_step(net, opt, xs_tr[sel], ys_tr[sel], m_tr[sel],
+                                             group))
                 steps_run += 1
             te_loss = float(eval_loss(net, xs_te, ys_te, m_te))
             per_frame = te_loss / frames_te

@@ -14,10 +14,11 @@
    WORLD synthesizer,
 5. optionally score the DTW-aligned MCD against a reference utterance.
 
-Every lever of both paths runs; the sharded solver raises
-``NotImplementedError`` naming its ROADMAP item. The entry points run on
-the card (``device="cuda"``) unless the caller passes ``device="cpu"``;
-without a card the default raises.
+Every lever of both paths runs. ``nmf.solver=mu_sharded`` splits the
+dictionary over the ranks of the process group (``parallel.sharded_nmf``);
+every rank then converts the same utterance and returns the same result.
+The entry points run on the card (``device="cuda"``) unless the caller
+passes ``device="cpu"``; without a card the default raises.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from exemplars_vc_tpu_torch.align.exemplar import (
     alignment_keep_mask,
@@ -51,6 +53,12 @@ from exemplars_vc_tpu_torch.io.store import ArtifactStore
 from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
 from exemplars_vc_tpu_torch.obs.metrics import mcd_aligned
 from exemplars_vc_tpu_torch.obs.profiling import Timer
+from exemplars_vc_tpu_torch.parallel.distributed import world_size
+from exemplars_vc_tpu_torch.parallel.mesh import make_mesh
+from exemplars_vc_tpu_torch.parallel.sharded_nmf import (
+    gather_activations,
+    sharded_nmf_activations,
+)
 from exemplars_vc_tpu_torch.pipelines.conv_dicts import (
     build_conversion_dicts_pair,
     extract_stft_complex,
@@ -74,16 +82,6 @@ class ConversionResult:
     nmf_shape: tuple[int, int, int] = (0, 0, 0)   # (F, K, D) of the first solve
     # each solve by feature name: (F, K, D, n_iter)
     solves: dict[str, tuple[int, int, int, int]] = field(default_factory=dict)
-
-
-def _check_slice(cfg: Config) -> None:
-    """Raise for the levers that are not ported."""
-    unported = [
-        (cfg.nmf.solver == "mu_sharded", "nmf.solver='mu_sharded'", 12),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
 def mcd_between_signals(a: np.ndarray, b: np.ndarray, cfg: Config,
@@ -181,8 +179,10 @@ def _dispatch_solver(X: torch.Tensor, A: torch.Tensor, cfg: Config) -> NmfState:
     float32 Frobenius update runs the recon/update kernels; ``work_dtype``
     other than float32 is the plain-torch bfloat16 solve); ``mu_pallas`` the
     same MU as the reference's Pallas solver runs it, which takes neither
-    ``beta_loss`` nor ``sparsity_l1``: Frobenius without l1; ``cd``/``nnls``
-    FISTA NNLS; ``qr``/``qrmf`` the unconstrained solve clamped at 0."""
+    ``beta_loss`` nor ``sparsity_l1``: Frobenius without l1; ``mu_sharded``
+    that solve with the dictionary split over the process group's ranks
+    (:func:`_sharded_solve`); ``cd``/``nnls`` FISTA NNLS; ``qr``/``qrmf``
+    the unconstrained solve clamped at 0."""
     n = cfg.nmf
     solver = "mu" if n.solver == "auto" else n.solver
     if solver == "mu":
@@ -191,6 +191,8 @@ def _dispatch_solver(X: torch.Tensor, A: torch.Tensor, cfg: Config) -> NmfState:
                                l1=n.sparsity_l1, work_dtype=work)
     if solver == "mu_pallas":
         return nmf_activations(X, A, tol=n.tol, max_iter=n.max_iter)
+    if solver == "mu_sharded":
+        return _sharded_solve(X, A, cfg)
     if solver in ("cd", "nnls"):
         # a sklearn cd "iteration" is a sweep over all K coordinates; its
         # objective takes ~10× as many FISTA steps
@@ -201,6 +203,32 @@ def _dispatch_solver(X: torch.Tensor, A: torch.Tensor, cfg: Config) -> NmfState:
         H = torch.clamp(qr_activations(X, A), min=0.0)
         return NmfState(H, 1, torch.linalg.norm(X - H @ A))
     raise ValueError(f"unknown nmf solver {solver!r}")
+
+
+def _sharded_solve(X: torch.Tensor, A: torch.Tensor, cfg: Config) -> NmfState:
+    """The Frobenius MU solve (no l1, as in the JAX package) with A and H
+    split over a ``dict`` axis of every rank of the default process group
+    (one rank without a group), shrunk to a divisor of K. Every rank calls
+    it with the same X and A on its own device and gets the whole H, n_iter
+    and error: the shards are all-gathered, and a rank outside a shrunk axis
+    takes no shard and receives them from rank 0."""
+    K = A.shape[0]
+    world = world_size()
+    n = world
+    while K % n:          # the shard count must divide K (padded to 512s,
+        n -= 1            # so this is for tiny dictionaries)
+    mesh = make_mesh(data=1, dict_=n)
+    if mesh.coordinate() is not None:
+        st = sharded_nmf_activations(X, A, mesh, tol=cfg.nmf.tol, max_iter=cfg.nmf.max_iter)
+        H = gather_activations(st.H, mesh)
+        stats = torch.stack([st.error.float(), torch.tensor(float(st.n_iter), device=X.device)])
+    else:
+        H = torch.empty((X.shape[0], K), dtype=torch.float32, device=X.device)
+        stats = torch.empty(2, dtype=torch.float32, device=X.device)
+    if n < world:
+        dist.broadcast(H, src=0)
+        dist.broadcast(stats, src=0)
+    return NmfState(H, int(stats[1]), stats[0])
 
 
 def convert_f0_logmv(f0: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -389,7 +417,6 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
     "synthesis") are device times; otherwise a stage's queued work may
     drain inside a later one."""
     device = resolve_device(device)
-    _check_slice(cfg)
     timings: dict[str, float] = {}
     m = cfg.mcep
 

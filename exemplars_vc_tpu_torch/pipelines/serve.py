@@ -30,7 +30,6 @@ from exemplars_vc_tpu_torch.pipelines.conv_dicts import (
 )
 from exemplars_vc_tpu_torch.pipelines.convert import (
     _aligned_dicts,
-    _check_slice,
     _convert_features_of,
     _preprocess_frames,
     _smooth_h,
@@ -61,7 +60,6 @@ class Converter:
     def __init__(self, cfg: Config, store: ArtifactStore, data_path: str,
                  nb_file: int | None = None, *, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        _check_slice(cfg)
         self.cfg = cfg
         with Timer(self.device, fence=True) as t:
             dicts, self.kind = _aligned_dicts(cfg, store, data_path, nb_file, self.device)

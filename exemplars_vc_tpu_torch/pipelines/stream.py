@@ -19,7 +19,7 @@ from exemplars_vc_tpu_torch.config import Config
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
 from exemplars_vc_tpu_torch.factorize.nmf import convert_features
-from exemplars_vc_tpu_torch.pipelines.convert import _check_slice, _solve_activations
+from exemplars_vc_tpu_torch.pipelines.convert import _solve_activations
 
 
 class StreamingConverter:
@@ -33,7 +33,6 @@ class StreamingConverter:
     def __init__(self, cfg: Config, A, B, context_frames: int = 32, synth_iters: int = 60,
                  *, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        _check_slice(cfg)
         # chunked ≡ batch needs the deterministic float32 solve and no
         # coupling between frames in it: nmf.context_frames (a chunk's edges
         # would clamp where the batch's do not) and nmf.h_smooth are set to 0.

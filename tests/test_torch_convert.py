@@ -146,19 +146,26 @@ def test_fused_path_matches_jax(corpus, cfg, jcfg, tmp_path):
     ("data.use_stft=false", 10), ("nmf.solver=mu_sharded", 12),
 ])
 def test_unported_levers_raise(override, item, corpus, tmp_path):
-    """The lever that still waits, the sharded solver (ROADMAP queue 1 item
-    12), raises. The WORLD path (item 10, ported) converts: sp and ap solves
-    over 513 bins and finite audio (its parity with the JAX package:
-    ``tests/test_torch_world_convert.py``). Every other lever has its parity
-    case in ``tests/test_torch_levers.py::test_lever_converts_as_jax``."""
+    """The levers that waited for ROADMAP queue 1 items 10 and 12 now
+    convert. The WORLD path: sp and ap solves over 513 bins and finite audio
+    (its parity with the JAX package: ``tests/test_torch_world_convert.py``).
+    The sharded solver in a world of one process: one shard, the same
+    kernels in the same order as ``mu``, so equal n_iter and bit-equal Y and
+    audio (over several ranks: ``tests/test_torch_parallel.py``). Every
+    other lever has its parity case in
+    ``tests/test_torch_levers.py::test_lever_converts_as_jax``."""
     data, src, _ = corpus
     c = load_config(overrides=OVERRIDES + [override])
-    if item != 10:
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\)"):
-            tconvert.convert_utterance(c, ArtifactStore(str(tmp_path)), data, src, device="cpu")
-        return
     res = tconvert.convert_utterance(c, ArtifactStore(str(tmp_path)), data, src, nb_file=3,
-                                     device="cpu")
+                                     synth_iters=3, device="cpu")
+    if item == 12:
+        ref = tconvert.convert_utterance(load_config(overrides=OVERRIDES),
+                                         ArtifactStore(str(tmp_path / "mu")), data, src,
+                                         nb_file=3, synth_iters=3, device="cpu")
+        assert res.n_iter == ref.n_iter and res.nmf_error == ref.nmf_error
+        assert torch.equal(res.converted["stft"], ref.converted["stft"])
+        np.testing.assert_array_equal(res.audio, ref.audio)
+        return
     assert set(res.converted) == {"sp", "ap", "f0"} and set(res.solves) == {"sp", "ap"}
     assert res.solves["sp"][1:3] == (512, 513) and np.isfinite(res.audio).all()
 

@@ -121,6 +121,75 @@ def test_dtw_kernels_long_pair(cuda):
     _dtw_check(cuda, ta, tb, torch.tensor([[ta, tb]], dtype=torch.int32), dim=4)
 
 
+def _tiled_sweep(C, n_rows, col_block, tile, codes=True):
+    """The DP of one pair (Ta, Tb) in n_rows row blocks x column blocks of
+    col_block, tile by tile in a wavefront order, each tile's halos from its
+    neighbours (a message of col_block + 4 floats, the bottom row then the
+    corner, as the sequence-parallel DTW hands it on). Returns the codes
+    (Ta, Tb) (or None), the last cell's cost and the tile launches."""
+    ta, tb = C.shape
+    R = ta // n_rows
+    dev = C.device
+    dirs = torch.zeros((ta, tb), dtype=torch.int8, device=dev) if codes else None
+    bottoms, rights = {}, {}
+    for r in range(n_rows):
+        for b in range(-(-tb // col_block)):
+            c0, c1 = b * col_block, min(tb, (b + 1) * col_block)
+            top = corner = None
+            if r > 0:
+                msg = torch.full((col_block + 4,), dtw_cuda.BIG, dtype=torch.float32, device=dev)
+                msg[: c1 - c0] = bottoms[r - 1, b]
+                if b > 0:
+                    msg[col_block] = bottoms[r - 1, b - 1][-1]
+                    corner = msg[col_block:col_block + 1]
+                top = msg
+            bot, right, cd = tile(C[r * R:(r + 1) * R, c0:c1], top, corner,
+                                  rights.get((r, b - 1)), origin=r == 0 and b == 0, codes=codes)
+            bottoms[r, b], rights[r, b] = bot, right
+            if codes:
+                dirs[r * R:(r + 1) * R, c0:c1] = cd
+    return dirs, bottoms[n_rows - 1, -(-tb // col_block) - 1][-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ta,tb,n_rows,col_block", [
+    (128, 200, 2, 64), (128, 200, 4, 32), (300, 241, 3, 100), (300, 241, 1, 241),
+    (8200, 700, 2, 512), (64, 90, 4, 32)])
+def test_dtw_tile_mode_equals_one_sweep(cuda, ta, tb, n_rows, col_block):
+    """The wavefront's tile mode in a wavefront schedule of tiles against one
+    sweep of the same C, byte for byte (codes and the last cost), and the
+    distance-only variant's cost equal too; tiles of one row a lane and of
+    eight (4100 rows), windows off a 16-byte boundary (100, 241 columns) and
+    a ragged last column block; the tile twin gives the same codes."""
+    rng = np.random.default_rng(ta + col_block)
+    fa = torch.as_tensor(rng.standard_normal((ta, 6)).astype(np.float32), device=cuda)
+    fb = torch.as_tensor(rng.standard_normal((tb, 6)).astype(np.float32), device=cuda)
+    C = pairwise_sqdist(fa, fb).contiguous()
+    lens = torch.tensor([[ta, tb]], dtype=torch.int32, device=cuda)
+    cost, dirs = dtw_cuda.dtw_wavefront(C[None].contiguous(), lens)
+    sweep = dtw_cuda.tile_codes(dirs[0], ta, tb)
+    before = dtw_cuda.dtw_tile.launches
+    got, last = _tiled_sweep(C, n_rows, col_block, dtw_cuda.dtw_tile)
+    n_tiles = n_rows * -(-tb // col_block)
+    assert dtw_cuda.dtw_tile.launches == before + n_tiles
+    assert torch.equal(got, sweep), int((got != sweep).sum())
+    assert float(last) == float(cost[0])
+    _, last_d = _tiled_sweep(C, n_rows, col_block, dtw_cuda.dtw_tile, codes=False)
+    assert float(last_d) == float(cost[0])
+    if ta <= 300:
+        twin, last_p = _tiled_sweep(C.cpu(), n_rows, col_block, dtw_cuda.dtw_tile_plain)
+        assert torch.equal(twin, got.cpu()) and float(last_p) == float(cost[0])
+
+
+@pytest.mark.cuda
+def test_dtw_tile_refuses_bad_halos(cuda):
+    C = torch.rand((64, 40), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        dtw_cuda.dtw_tile(C, torch.zeros(41, device=cuda))
+    with pytest.raises(ValueError, match="left"):
+        dtw_cuda.dtw_tile(C, left=torch.zeros(10, device=cuda))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("host_lens", [True, False], ids=["host-lens", "device-lens"])
 def test_dtw_batch_refuses_out_of_range_lengths(cuda, host_lens):

@@ -136,14 +136,18 @@ def test_converter_prepares_once(corpus, tmp_path):
 
 
 def test_converter_refuses_what_is_not_ported(corpus, tmp_path):
-    """The sharded solver still waits (ROADMAP queue 1 item 12); the WORLD
-    path, which waited for item 10, now prepares its dictionaries (its
+    """Nothing is refused any more: the sharded solver (ROADMAP queue 1 item
+    12) converts, in a world of one process as ``mu`` does, bit for bit; the
+    WORLD path, which waited for item 10, prepares its dictionaries (its
     conversions: ``tests/test_torch_world_convert.py``)."""
     data = corpus[0]
     store = ArtifactStore(str(tmp_path / "s"))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 12\)"):
-        Converter(load_config(overrides=OVERRIDES + ["nmf.solver=mu_sharded"]), store, data,
-                  nb_file=3, device="cpu")
+    sharded = Converter(load_config(overrides=OVERRIDES + ["nmf.solver=mu_sharded"]), store,
+                        data, nb_file=3, device="cpu").convert(corpus[1], synth_iters=2)
+    plain = Converter(load_config(overrides=OVERRIDES), store, data, nb_file=3,
+                      device="cpu").convert(corpus[1], synth_iters=2)
+    assert sharded.nmf_iters == plain.nmf_iters
+    np.testing.assert_array_equal(sharded.audio, plain.audio)
     conv = Converter(load_config(overrides=OVERRIDES + ["data.use_stft=false"]), store, data,
                      nb_file=3, device="cpu")
     assert conv.kind == "world" and conv.dicts["sp"][0].shape == (512, 513)

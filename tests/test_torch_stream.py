@@ -113,8 +113,13 @@ def test_streaming_defaults_to_the_card_and_refuses_the_unported():
 
     A, B = _dicts()
     assert inspect.signature(StreamingConverter.__init__).parameters["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 12\)"):
-        StreamingConverter(load_config(overrides=["nmf.solver=mu_sharded"]), A, B, device="cpu")
+    # the sharded solver (ROADMAP queue 1 item 12) streams, in a world of one
+    # process as mu does, bit for bit
+    X = np.abs(np.random.default_rng(3).standard_normal((16, A.shape[1]))).astype(np.float32)
+    sharded = StreamingConverter(load_config(overrides=["nmf.solver=mu_sharded"]), A, B,
+                                 device="cpu")._convert_block(X)
+    assert torch.equal(sharded, StreamingConverter(load_config(), A, B,
+                                                   device="cpu")._convert_block(X))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             StreamingConverter(load_config(), A, B)
