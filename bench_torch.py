@@ -25,7 +25,13 @@ and Griffin-Lim(300). It reports
 - ``serving``: a ``Converter`` prepared once (``prepare_seconds``), its
   ``convert`` p50/p90, ``convert_batch`` of four utterances, and a
   ``StreamingConverter``'s steady ``push`` p50/p90 against the chunk's
-  duration (16 frames, context 32, 60 Griffin-Lim iterations).
+  duration (16 frames, context 32, 60 Griffin-Lim iterations);
+- ``separate``: ``separate_signal`` in ``bench_separate.py``'s multichannel
+  fields (``cold_s``, ``warm_s``, ``rtf_warm``, ``nll_drop``; images fetched
+  to the host inside the timing) on its fixed 2 s stereo mixture (2 sources,
+  8 components, 20 EM iterations, n_fft 400, hop 80) and on a 60 s
+  two-talker recording of the in-repo speech at the CLI's defaults (50 EM
+  iterations), each with the card's name and power limit.
 
 ``--warps`` sets ``data.dict_augment_warps`` for every part (``--warps 14``
 stands for the 14 warps of the JAX package's large-dictionary benchmark:
@@ -55,6 +61,35 @@ def log(msg: str) -> None:
 def pct(vals: list[float], q: float) -> float:
     s = sorted(vals)
     return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def bench_separate(torch, dev, card: str) -> dict:
+    """``separate_signal`` cold and warm on the 2 s and the 60 s mixtures."""
+    from exemplars_vc_tpu_torch.io.standin import speech_mixture, synthetic_mixture
+    from exemplars_vc_tpu_torch.separate import separate_signal
+
+    speech, _, sr = speech_mixture(seconds=60.0)
+    cases = {"mixture_2s": (synthetic_mixture(), 2.0, 20),
+             "speech_60s": (speech, speech.shape[1] / sr, 50)}
+    out = {}
+    for name, (x, seconds, n_em) in cases.items():
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images, model = separate_signal(
+                x, n_sources=2, n_components=8, n_em=n_em, n_fft=400, hop_length=80,
+                generator=torch.Generator().manual_seed(0), device=dev)
+            images.cpu().numpy()
+            nll = model.neg_log_like.cpu().numpy()
+            return nll, time.perf_counter() - t0
+
+        _, cold = run()
+        nll, warm = run()
+        out[name] = {"cold_s": round(cold, 4), "warm_s": round(warm, 4),
+                     "rtf_warm": round(seconds / warm, 2),
+                     "nll_drop": round(float(nll[0] - nll[-1]), 1), "audio_s": seconds,
+                     "n_em": n_em, "card": card}
+    return out
 
 
 def main() -> None:
@@ -182,6 +217,9 @@ def main() -> None:
         }
         log(f"serving: {serving}")
 
+    separate = bench_separate(torch, dev, card)
+    log(f"separate: {separate}")
+
     rate = total_audio / hot
     payload = {
         "metric": "audio-seconds/s per GPU (dict build + NMF convert + GL300), "
@@ -203,6 +241,7 @@ def main() -> None:
             "heldout_mcd_db": round(mcd, 4),
             "stages_synced_s": {k: round(v, 4) for k, v in res_sync.timings.items()},
             "serving": serving,
+            "separate": separate,
             "platform": "gpu",
             "torch": torch.__version__,
             "total_wall_s": round(time.perf_counter() - t_start, 1),

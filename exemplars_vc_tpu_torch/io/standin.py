@@ -1,5 +1,6 @@
 """A stand-in corpus built from the 16 kHz speech committed under
-``artifacts/audio/``.
+``artifacts/audio/``, and the separation inputs: the benchmark's fixed
+synthetic stereo mixture and a two-talker mixture of that speech.
 
 The reference corpus (VCC SF1/TF1) is not in the repository. These files are
 earlier conversions of its utterances and keep their lengths, so a corpus
@@ -24,6 +25,9 @@ import os
 import shutil
 from pathlib import Path
 
+import numpy as np
+
+from exemplars_vc_tpu_torch.io.wav import read_wav
 from exemplars_vc_tpu_torch.pipelines.evaluate import HELD_OUT_UTT
 
 AUDIO_DIR = Path(__file__).resolve().parents[2] / "artifacts" / "audio"
@@ -47,3 +51,64 @@ def build_standin_corpus(root: str, n_pairs: int = 8) -> tuple[str, str, str]:
         shutil.copyfile(AUDIO_DIR / f"heldout_{HELD_OUT_UTT}_stft_{kind}.wav", dst)
         held[spk] = os.fspath(dst)
     return os.fspath(data), held["SF1"], held["TF1"]
+
+
+def synthetic_mixture(return_components: bool = False):
+    """The fixed 2 s stereo mixture of the separation benchmark (a copy of
+    ``bench_separate.py:synthetic_mixture``): a vibrato harmonic lead panned
+    left plus a two-chord + filtered-noise accompaniment panned right. With
+    ``return_components`` also the true stereo lead and accompaniment
+    images."""
+    sr, dur_s = 16000, 2.0
+    t = np.arange(int(sr * dur_s)) / sr
+    rng = np.random.default_rng(1234)
+    f0 = 220.0 * (1 + 0.01 * np.sin(2 * np.pi * 5.0 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    lead = sum((0.6 / h) * np.sin(h * phase) for h in range(1, 6))
+    env = np.minimum(1.0, 10 * t) * np.minimum(1.0, 10 * (dur_s - t))
+    lead = lead * env
+    chord = sum(0.3 * np.sin(2 * np.pi * f * t) for f in (130.8, 164.8, 196.0))
+    noise = rng.standard_normal(len(t))
+    k = np.hanning(65)
+    noise = np.convolve(noise, k / k.sum(), mode="same")
+    accomp = (chord + 0.5 * noise) * env
+    left = 0.9 * lead + 0.35 * accomp
+    right = 0.35 * lead + 0.9 * accomp
+    x = np.stack([left, right]).astype(np.float32)
+    s = 0.5 / np.abs(x).max()
+    if return_components:
+        lead_img = (s * np.stack([0.9 * lead, 0.35 * lead])).astype(np.float32)
+        acc_img = (s * np.stack([0.35 * accomp, 0.9 * accomp])).astype(np.float32)
+        return s * x, lead_img, acc_img
+    return s * x
+
+
+def speech_mixture(seconds: float = 60.0):
+    """A two-talker stereo recording made of the in-repo speech (44 files,
+    148 s at 16 kHz): stream A is the files in sorted order, stream B the
+    same list rotated by half, so the two always speak different
+    utterances; each cut to ``seconds``. A is panned left (gains 0.9 / 0.35),
+    B right (0.35 / 0.9) and 3 samples late on the right channel.
+    Returns (x (2, T) float32 at peak 0.5, (2, 2, T) true images, sr)."""
+    files = sorted(AUDIO_DIR.rglob("*.wav"))
+    sigs = [read_wav(os.fspath(p)) for p in files]
+    sr = sigs[0][1]
+    n = int(seconds * sr)
+    half = len(sigs) // 2
+
+    def stream(order):
+        s = np.concatenate([sigs[i][0] for i in order]).astype(np.float64)
+        if len(s) < n:
+            raise ValueError(f"the in-repo speech holds {len(s) / sr:.1f} s, "
+                             f"{seconds} s asked for")
+        return s[:n]
+
+    a = stream(range(len(sigs)))
+    b = stream([(i + half) % len(sigs) for i in range(len(sigs))])
+    b_late = np.concatenate([np.zeros(3), b[:n - 3]])
+    img_a = np.stack([0.9 * a, 0.35 * a])
+    img_b = np.stack([0.35 * b, 0.9 * b_late])
+    x = img_a + img_b
+    s = 0.5 / np.abs(x).max()
+    return ((s * x).astype(np.float32),
+            np.stack([s * img_a, s * img_b]).astype(np.float32), sr)

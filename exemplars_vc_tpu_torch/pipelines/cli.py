@@ -9,9 +9,10 @@ Usage::
         --wav DATA/SF1/100001.wav --out out.wav
     python -m exemplars_vc_tpu_torch.pipelines.cli warp-train --data DATA --device cpu
 
-``-o section.key=value`` overrides the configuration. The separation
-subcommands exist and raise: the separation stack is not ported yet (ROADMAP
-queue 1 item 13).
+``-o section.key=value`` overrides the configuration. ``separate`` runs the
+multichannel separation (``--seed`` seeds its torch generator);
+``separate-lead`` exists and raises: the lead family is not ported yet
+(ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -229,8 +230,39 @@ def cmd_eval_loo(args):
 
 
 def cmd_separate(args):
-    raise NotImplementedError(f"{args.cmd}: the separation stack is not ported yet "
-                              "(ROADMAP queue 1 item 13)")
+    """Multichannel NMF source separation (``separate/``): one wav a source
+    under ``--out-dir``, channels averaged."""
+    import torch
+
+    from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
+    from exemplars_vc_tpu_torch.separate import separate_signal
+
+    # the file's own channels: the JAX CLI reads this wav downmixed to mono
+    # and duplicates it, which leaves the spatial model no inter-channel cue
+    # (ROADMAP queue 3)
+    x, sr = read_wav(args.wav, mono=False)
+    if x.shape[0] == 1:   # mono input: duplicate to a 2-channel mixture
+        x = np.concatenate([x, x])
+    images, model = separate_signal(
+        x, n_sources=args.sources, n_components=args.components,
+        n_em=args.em_iters, n_fft=args.n_fft, hop_length=args.hop,
+        generator=torch.Generator().manual_seed(args.seed), device=args.device)
+    images = images.cpu().numpy()
+    os.makedirs(args.out_dir, exist_ok=True)
+    base = os.path.splitext(os.path.basename(args.wav))[0]
+    outs = []
+    for j in range(args.sources):
+        p = os.path.join(args.out_dir, f"{base}_source{j}.wav")
+        write_wav(p, images[j].mean(axis=0), sr)
+        outs.append(p)
+    nll = model.neg_log_like.cpu().numpy()
+    print(json.dumps({"out": outs, "sr": sr,
+                      "nll_first": float(nll[0]), "nll_last": float(nll[-1])}))
+
+
+def cmd_separate_lead(args):
+    raise NotImplementedError(f"{args.cmd}: lead/accompaniment separation is not ported "
+                              "yet (ROADMAP queue 1 item 13)")
 
 
 def main(argv=None):
@@ -312,7 +344,7 @@ def main(argv=None):
     p.set_defaults(fn=cmd_eval_loo)
 
     p = sub.add_parser("separate", help="multichannel NMF source separation "
-                                        "(not ported: queue 1 item 13)")
+                                        "(FASST-class, separate/)")
     p.add_argument("--wav", required=True, help="mixture wav (stereo, or mono duplicated)")
     p.add_argument("--out-dir", required=True)
     p.add_argument("--sources", type=int, default=2)
@@ -320,7 +352,8 @@ def main(argv=None):
     p.add_argument("--em-iters", type=int, default=50)
     p.add_argument("--n-fft", type=int, default=400)
     p.add_argument("--hop", type=int, default=80)
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0, help="seed of the torch generator "
+                                                        "that draws the random inits")
     _add_device(p)
     p.set_defaults(fn=cmd_separate)
 
@@ -340,7 +373,7 @@ def main(argv=None):
     p.add_argument("--hop", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
     _add_device(p)
-    p.set_defaults(fn=cmd_separate)
+    p.set_defaults(fn=cmd_separate_lead)
 
     args = ap.parse_args(argv)
     return args.fn(args)

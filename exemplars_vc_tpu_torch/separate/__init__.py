@@ -1,0 +1,59 @@
+"""Source separation in torch (port of the core of
+``exemplars_vc_tpu/separate``; the reference's vendored pyfasst toolbox):
+
+- ``glue``: host float64 input transforms, device STFT stacking, Wiener
+  splits and source-image ISTFTs, spatial-covariance builders;
+- ``isnmf``: Itakura-Saito NMF (``tools/nmf.py:NMF_decomp_init``) and the
+  Durrieu source/filter variant (``SFNMF_decomp_init``);
+- ``multichannel``: EM of the FASST local Gaussian model (per-source NMF
+  spectral power × full-rank spatial covariance), Wiener separation,
+  ``separate_signal``;
+- ``hmm``: HMM/SHMM spectral-state models, Viterbi-decoded
+  (``MultiChanHMM``);
+- ``demix``: DEMIX anechoic mixing-direction clustering (``demixTF.py``);
+- ``beamform``: ULA steering vectors, MVDR filters, directivity diagrams.
+
+Every entry point takes ``device`` (default ``"cuda"``; a CUDA device
+without a card raises) and, where the JAX package takes a PRNG key, a
+``torch.Generator`` whose draws are made on the CPU and then moved. The
+Viterbi tracker is ``align.viterbi``.
+"""
+
+from exemplars_vc_tpu_torch.separate.beamform import (
+    apply_beamformer,
+    directivity_diagram,
+    mvdr_filter,
+    ula_steering,
+)
+from exemplars_vc_tpu_torch.separate.demix import DemixEstimate, demix
+from exemplars_vc_tpu_torch.separate.hmm import (
+    HMMSpectra,
+    fit_hmm_spectra,
+    fit_multichannel_hmm,
+    sticky_transition,
+)
+from exemplars_vc_tpu_torch.separate.isnmf import is_divergence, is_nmf, sf_nmf
+from exemplars_vc_tpu_torch.separate.multichannel import (
+    MultichannelNMF,
+    fit_multichannel_nmf,
+    separate_signal,
+)
+
+__all__ = [
+    "is_nmf",
+    "is_divergence",
+    "sf_nmf",
+    "MultichannelNMF",
+    "fit_multichannel_nmf",
+    "separate_signal",
+    "DemixEstimate",
+    "demix",
+    "HMMSpectra",
+    "fit_hmm_spectra",
+    "fit_multichannel_hmm",
+    "sticky_transition",
+    "ula_steering",
+    "mvdr_filter",
+    "directivity_diagram",
+    "apply_beamformer",
+]
