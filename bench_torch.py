@@ -31,7 +31,14 @@ and Griffin-Lim(300). It reports
   to the host inside the timing) on its fixed 2 s stereo mixture (2 sources,
   8 components, 20 EM iterations, n_fft 400, hop 80) and on a 60 s
   two-talker recording of the in-repo speech at the CLI's defaults (50 EM
-  iterations), each with the card's name and power limit.
+  iterations), each with the card's name and power limit;
+- ``separate_lead``: the three lead-separation models (``separate_lead`` on
+  the channel mean, ``separate_lead_stereo``, ``separate_lead_multichannel``)
+  at the CLI's defaults (n_fft 1024, hop 256, f0 100-800 Hz, 40
+  accompaniment components, 30 SIMM iterations a round, 20 EM iterations)
+  on the same 2 s and 60 s mixtures: ``cold_s``, ``warm_s`` and
+  ``audio_s_per_s`` (warm; outputs fetched to the host inside the timing),
+  each with the card's name and power limit.
 
 ``--warps`` sets ``data.dict_augment_warps`` for every part (``--warps 14``
 stands for the 14 warps of the JAX package's large-dictionary benchmark:
@@ -89,6 +96,40 @@ def bench_separate(torch, dev, card: str) -> dict:
                      "rtf_warm": round(seconds / warm, 2),
                      "nll_drop": round(float(nll[0] - nll[-1]), 1), "audio_s": seconds,
                      "n_em": n_em, "card": card}
+    return out
+
+
+def bench_separate_lead(torch, dev, card: str) -> dict:
+    """The three lead-separation models cold and warm on the 2 s and the
+    60 s mixtures."""
+    from exemplars_vc_tpu_torch.io.standin import speech_mixture, synthetic_mixture
+    from exemplars_vc_tpu_torch.separate import (
+        separate_lead, separate_lead_multichannel, separate_lead_stereo)
+
+    speech, _, sr = speech_mixture(seconds=60.0)
+    kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0, f0_max=800.0,
+              n_accomp=40, device=dev)
+    models = {"mono": lambda x, g: separate_lead(x.mean(axis=0), n_iter=30, generator=g, **kw),
+              "stereo": lambda x, g: separate_lead_stereo(x, n_iter=30, generator=g, **kw),
+              "multichannel": lambda x, g: separate_lead_multichannel(
+                  x, n_iter_simm=30, n_em=20, generator=g, **kw)}
+    out = {}
+    for mix, (x, seconds) in {"mixture_2s": (synthetic_mixture(), 2.0),
+                              "speech_60s": (speech, speech.shape[1] / sr)}.items():
+        for name, fn in models.items():
+            def run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(x, torch.Generator().manual_seed(0))
+                res.lead.cpu().numpy()
+                res.accomp.cpu().numpy()
+                return time.perf_counter() - t0
+
+            cold = run()
+            warm = run()
+            out[f"{name}/{mix}"] = {"cold_s": round(cold, 4), "warm_s": round(warm, 4),
+                                    "audio_s_per_s": round(seconds / warm, 2),
+                                    "audio_s": seconds, "card": card}
     return out
 
 
@@ -219,6 +260,8 @@ def main() -> None:
 
     separate = bench_separate(torch, dev, card)
     log(f"separate: {separate}")
+    separate_lead = bench_separate_lead(torch, dev, card)
+    log(f"separate_lead: {separate_lead}")
 
     rate = total_audio / hot
     payload = {
@@ -242,6 +285,7 @@ def main() -> None:
             "stages_synced_s": {k: round(v, 4) for k, v in res_sync.timings.items()},
             "serving": serving,
             "separate": separate,
+            "separate_lead": separate_lead,
             "platform": "gpu",
             "torch": torch.__version__,
             "total_wall_s": round(time.perf_counter() - t_start, 1),

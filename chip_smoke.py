@@ -207,6 +207,41 @@ Phases (any failure exits non-zero and prints no result line):
    frame). (c) ``pipelines.cli.main(["separate", ..., "--device", "cuda"])``
    in-process on the 2 s mixture written as a stereo wav: the JAX CLI's
    four JSON keys and two wavs. Nothing in the phase catches a failure.
+11. ``separate-lead``, the constant-Q transforms and ``separate_batch``
+   (torch ops only, no hand-written kernel: the counters are set to 0
+   before the phase and printed after it). (a) The 2 s mixture at
+   ``bench_separate.py``'s settings (n_fft 1024, hop 256, f0 100-800 Hz, 20
+   accompaniment components): ``separate_lead`` on its channel mean (15
+   iterations, generator seed 1), ``separate_lead_stereo`` (15 iterations)
+   and ``separate_lead_multichannel`` (10 SIMM iterations, 10 EM), the two
+   stereo models from the JAX package's draws of ``PRNGKey(1)``
+   (``io.standin.jax_simm_draws``: the split depends on the random start,
+   ``tools/simm_seed_sweep.py``), each cold and warm on the card and once
+   in the port's CPU run: outputs finite, median voiced f0 within 10 Hz of
+   220 Hz; the stereo SIMM's lead energy share within 0.01 of the CPU
+   run's and within 0.05 of the JAX package's 0.6757, its lead SDR above
+   3 dB; the composed path's share within 0.05 of the CPU run's. Reported:
+   walls, each SDR, the melody agreement and the lead's relative L2 card vs
+   CPU. (b) ``cqt``, ``minqt`` and ``nsgt`` of the 60 s two-talker
+   recording at their defaults, on the card against the port's CPU run
+   (relative L2 ≤ 1e-4), cold, warm and CPU walls, device ms, launches and
+   the largest device events; ``insgt ∘ nsgt`` of the recording within 5e-4
+   of its peak and ``iminqt ∘ minqt`` of an in-band sum of sines of its
+   length above 40 dB on the interior (the JAX tests' bounds), timed; the
+   recording's own MinQT round trip SNR reported. (c) The three models on
+   the 60 s recording at the CLI's defaults (40 accompaniment components, 30
+   SIMM iterations a round, 20 EM): finite; cold and warm wall, audio-s/s,
+   ``torch.profiler`` device ms, launches and the largest device events,
+   ``max_memory_allocated``, the share and the voiced frames. (d) In each
+   of phase 9's worlds (``batch_separation`` in every rank), ``separate_batch``
+   of two-second mixtures cut from the recording (n_fft 400, hop 80, 2
+   sources, 8 components, 5 EM), four over the two gloo ranks and one in
+   the nccl world: each rank's images within 1e-4 relative of
+   ``separate_signal``'s single-mixture run on the same inits. (e)
+   ``pipelines.cli.main(["separate-lead", ..., "--model", m, "--device",
+   "cuda"])`` in-process for the three models on the 2 s mixture written as
+   a stereo wav: the JAX CLI's six JSON keys and two wavs. Nothing in the
+   phase catches a failure.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: the main
 path's, and for the two fused kernels the fused path's; ``launches_serving``:
@@ -1766,6 +1801,61 @@ def shard_kernels(torch, H, A, X) -> dict:
     return out
 
 
+def batch_separation(torch, dev, rank: int, world: int) -> dict:
+    """Phase 11 (d), in a rank of phase 9's worlds: ``separate_batch`` of
+    two-second mixtures cut from the two-talker recording, four over the
+    ranks (one in a world of one rank), split over the data axis; this
+    rank's images against ``separate_signal``'s single-mixture run on the
+    same inits (limit 1e-4 relative). Raises on a failed gate."""
+    from exemplars_vc_tpu_torch.device import synchronize
+    from exemplars_vc_tpu_torch.io.standin import speech_mixture
+    from exemplars_vc_tpu_torch.parallel import make_mesh
+    from exemplars_vc_tpu_torch.parallel.sharded_separate import batch_inits, separate_batch
+    from exemplars_vc_tpu_torch.separate import separate_signal
+    from exemplars_vc_tpu_torch.separate.glue import host_stft_stack, images_istft
+
+    def timed(fn):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    n_mix = 4 if world > 1 else 1
+    sx, _, _ = speech_mixture(seconds=2.0 * n_mix)
+    mixes = sx.reshape(2, n_mix, -1).transpose(1, 0, 2)             # (M, 2, 32000)
+    X = torch.stack([host_stft_stack(m, 400, 80, device="cpu") for m in mixes])
+    M, F, N, C = X.shape
+    inits = batch_inits(torch.Generator().manual_seed(0), M, 2, F, 8, N, C)
+    mesh = make_mesh(data=world, dict_=1)
+    kw = dict(n_sources=2, n_components=8, n_em=5)
+    def batch():
+        return separate_batch(X, mesh=mesh, W0=inits[0], H0=inits[1], R0=inits[2], device=dev,
+                              **kw)
+
+    (images, nll), ms = timed(batch)            # the driven, gated call (cold)
+    warm_ms = timed(batch)[1]
+    images = images.to_local() if hasattr(images, "to_local") else images
+    nll = nll.to_local() if hasattr(nll, "to_local") else nll
+    per = M // world
+    errs, single_ms = [], 0.0
+    for i in range(per):
+        m = rank * per + i
+        (want, _), t = timed(lambda: separate_signal(
+            mixes[m], n_fft=400, hop_length=80, W_init=inits[0][m], H_init=inits[1][m],
+            R_init=inits[2][m], device=dev, **kw))
+        single_ms += t
+        got = images_istft(images[i], 400, 80, mixes.shape[-1])
+        errs.append(float((got - want).abs().max() / want.abs().max()))
+    out = dict(mixtures=M, on_this_rank=per, F=F, N=N, cold_ms=ms, warm_ms=warm_ms,
+               single_ms=single_ms, rel=errs,
+               nll_finite=bool(torch.isfinite(nll).all()))
+    if max(errs) > 1e-4 or not out["nll_finite"]:
+        raise RuntimeError(f"phase 11 (d), rank {rank}: separate_batch vs separate_signal "
+                           f"{out} (limit 1e-4)")
+    return out
+
+
 def parallel_rank(rank: int, world: int, port: int, backend: str, out_dir: str, data: str,
                   wav: str) -> None:
     """One rank of phase 9 (module docstring): the sharded NMF, and with
@@ -1865,6 +1955,8 @@ def parallel_rank(rank: int, world: int, port: int, backend: str, out_dir: str, 
     kl = K // world
     shard_case(st.H, A[rank * kl:(rank + 1) * kl], X)
     del H, ref, st
+
+    res["separate_batch"] = batch_separation(torch, dev, rank, world)
     if world == 1:
         res["path_launches"] = path
         with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
@@ -2291,6 +2383,207 @@ def phase_separate(torch, np, dev, root: str, counted: dict, fused: dict) -> dic
     return out
 
 
+LEAD_KW = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0, f0_max=800.0)
+# the JAX package's operating point of the stereo SIMM on the 2 s mixture
+# (BENCHMARKS.md, TestOperatingPoint: lead energy share 0.6757 from PRNGKey(1))
+STEREO_SHARE_JAX = 0.6757
+
+
+def _fenced(torch, dev, fn):
+    """(fn(), wall seconds ending in a sync of ``dev``)."""
+    from exemplars_vc_tpu_torch.device import synchronize
+
+    dev = torch.device(dev)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def _lead_point(np, res, lead_img) -> dict:
+    """Lead energy share, voiced frames, median voiced f0 and lead SDR of a
+    lead-separation result (``lead_img``: the true lead image, or None)."""
+    lead = res.lead.cpu().numpy().astype(np.float64)
+    acc = res.accomp.cpu().numpy().astype(np.float64)
+    f0 = res.f0[res.f0 > 0]
+    out = {"share": float((lead ** 2).sum() / ((lead ** 2).sum() + (acc ** 2).sum())),
+           "voiced_frames": int(len(f0)),
+           "f0_median": float(np.median(f0)) if len(f0) else 0.0,
+           "finite": bool(np.isfinite(lead).all() and np.isfinite(acc).all())}
+    if lead_img is not None:
+        ref = lead_img if lead.shape[0] == lead_img.shape[0] else lead_img.mean(axis=0)[None]
+        out["sdr_db"] = _sdr_db(ref, lead)
+    return out
+
+
+def _transform_checks(torch, np, dev, xs) -> dict:
+    """Phase 11 (b): ``cqt``, ``minqt`` and ``nsgt`` of the 60 s recording
+    on the card against the port's CPU run, the round trips, walls and
+    device time."""
+    from exemplars_vc_tpu_torch.dsp import cqt, iminqt, insgt, minqt, nsgt
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    T = xs.shape[1]
+    out = {}
+    for name, fn in (("cqt", lambda d: cqt(xs, device=d)),
+                     ("minqt", lambda d: minqt(xs, device=d)),
+                     ("nsgt", lambda d: nsgt(xs, device=d))):
+        cold_c, cold = _fenced(torch, dev, lambda: fn(dev))
+        _, warm = _fenced(torch, dev, lambda: fn(dev))
+        ref, cpu_s = _fenced(torch, "cpu", lambda: fn("cpu"))
+        err = rel_l2(cold_c.cpu().numpy(), ref.numpy())
+        dev_ms, per = device_profile(lambda: fn(dev))
+        out[name] = {"shape": list(cold_c.shape), "cold_s": cold, "warm_s": warm,
+                     "cpu_s": cpu_s, "rel_l2_vs_cpu": err,
+                     "max_abs_diff_vs_cpu": float((cold_c.cpu() - ref).abs().max()),
+                     "device_ms": dev_ms,
+                     "device_launches": sum(n for n, _ in per.values()),
+                     "top_device": sorted(((round(ms, 3), n, k[:60])
+                                           for k, (n, ms) in per.items()), reverse=True)[:3]}
+        if not torch.isfinite(cold_c).all() or err > 1e-4:
+            fail(f"phase 11 (b): {name} on the card is {err:.3g} relative L2 from the CPU run "
+                 "(limit 1e-4) or not finite")
+        del cold_c, ref
+    # round trips within the JAX tests' bounds: the NSGT on the recording
+    # (tests/test_nsgt.py: 5e-4 of the peak), the MinQT's least-squares
+    # inverse on an in-band sum of sines of the recording's length
+    # (tests/test_minqt.py: > 40 dB on the interior), each timed; the
+    # recording's own MinQT round trip is reported
+    c = nsgt(xs, device=dev)
+    (back, nsgt_inv_s) = _fenced(torch, dev, lambda: insgt(c, T, device=dev))
+    err = float((back.cpu() - torch.as_tensor(xs)).abs().max() / np.abs(xs).max())
+    out["nsgt"].update(insgt_s=nsgt_inv_s, roundtrip_max_err_over_peak=err)
+    if err > 5e-4:
+        fail(f"phase 11 (b): insgt(nsgt(x)) is {err:.3g} of the peak from x (limit 5e-4)")
+    rng = np.random.default_rng(2)
+    t = np.arange(T) / 16000
+    sines = sum(rng.uniform(0.3, 1.0) * np.sin(2 * np.pi * f * t + rng.uniform(0, 6))
+                for f in (90.0, 220.0, 700.0, 1500.0, 3300.0, 6100.0)).astype(np.float32)
+
+    def snr_db(x, y):
+        lo, hi = 1024, len(x) - 1024
+        e = x[lo:hi] - y[lo:hi]
+        return float(10 * np.log10((x[lo:hi] ** 2).sum() / max((e ** 2).sum(), 1e-20)))
+
+    y, inv_s = _fenced(torch, dev, lambda: iminqt(minqt(sines, device=dev), T, device=dev))
+    snr = snr_db(sines, y.cpu().numpy())
+    speech = iminqt(minqt(xs[0], device=dev), T, device=dev).cpu().numpy()
+    out["minqt"].update(iminqt_s=inv_s, roundtrip_snr_db_in_band=snr,
+                        roundtrip_snr_db_speech=snr_db(xs[0], speech))
+    if snr <= 40.0:
+        fail(f"phase 11 (b): iminqt(minqt(x)) of an in-band signal at {snr:.1f} dB (limit 40)")
+    return out
+
+
+def phase_lead(torch, np, dev, root: str, counted: dict, fused: dict) -> dict:
+    """Lead separation, the transforms and the CLI's ``separate-lead`` on
+    the card (module docstring, phase 11)."""
+    from exemplars_vc_tpu_torch.io.standin import (
+        jax_simm_draws, speech_mixture, synthetic_mixture)
+    from exemplars_vc_tpu_torch.io.wav import write_wav
+    from exemplars_vc_tpu_torch.pipelines.cli import main as cli_main
+    from exemplars_vc_tpu_torch.separate import (
+        separate_lead, separate_lead_multichannel, separate_lead_stereo)
+
+    everything = {**counted, **fused}
+    _zero(everything)
+    x, lead_img, _ = synthetic_mixture(return_components=True)
+    r1, r2 = jax_simm_draws()
+    out = {"mixture_2s": {}}
+
+    # (a) the 2 s mixture: the stereo models from the JAX package's draws of
+    # PRNGKey(1) (its operating point depends on the start: tools/
+    # simm_seed_sweep.py), the mono model from generator seed 1
+    runs = {"mono": lambda d: separate_lead(
+                x.mean(axis=0), n_iter=15, n_accomp=20, device=d,
+                generator=torch.Generator().manual_seed(1), **LEAD_KW),
+            "stereo": lambda d: separate_lead_stereo(
+                x, n_iter=15, n_accomp=20, round1_init=r1, round2_init=r2, device=d,
+                **LEAD_KW),
+            "multichannel": lambda d: separate_lead_multichannel(
+                x, n_iter_simm=10, n_em=10, n_accomp=20, round1_init=r1, round2_init=r2,
+                device=d, **LEAD_KW)}
+    for name, fn in runs.items():
+        _, cold = _fenced(torch, dev, lambda: fn(dev))
+        res, warm = _fenced(torch, dev, lambda: fn(dev))
+        res_c, cpu_s = _fenced(torch, "cpu", lambda: fn("cpu"))
+        p, pc = _lead_point(np, res, lead_img), _lead_point(np, res_c, lead_img)
+        lead_rel = float(np.linalg.norm(res.lead.cpu().numpy() - res_c.lead.numpy())
+                         / np.linalg.norm(res_c.lead.numpy()))
+        r = {"cold_s": cold, "warm_s": warm, "cpu_s": cpu_s, "card": p, "cpu": pc,
+             "melody_equal": float(np.mean(res.f0 == res_c.f0)), "lead_rel_l2_vs_cpu": lead_rel}
+        say(f"separate-lead 2 s {name}: {json.dumps(r)}")
+        if not (p["finite"] and pc["finite"]):
+            fail(f"phase 11 {name}: non-finite lead or accompaniment")
+        if abs(p["f0_median"] - 220.0) > 10.0:
+            fail(f"phase 11 {name}: median voiced f0 {p['f0_median']:.1f} Hz (limit 220 ± 10)")
+        if name == "stereo":
+            if abs(p["share"] - pc["share"]) > 0.01 or abs(p["share"] - STEREO_SHARE_JAX) > 0.05:
+                fail(f"phase 11 stereo: lead share {p['share']:.4f} (CPU {pc['share']:.4f}, "
+                     f"limit 0.01; JAX {STEREO_SHARE_JAX}, limit 0.05)")
+            if p["sdr_db"] <= 3.0:
+                fail(f"phase 11 stereo: lead SDR {p['sdr_db']:.2f} dB (limit > 3)")
+        if name == "multichannel" and abs(p["share"] - pc["share"]) > 0.05:
+            fail(f"phase 11 multichannel: lead share {p['share']:.4f} vs the CPU run's "
+                 f"{pc['share']:.4f} (limit 0.05)")
+        out["mixture_2s"][name] = r
+
+    # (b) the transforms on the 60 s recording
+    xs, _, sr = speech_mixture(seconds=60.0)
+    seconds = xs.shape[1] / sr
+    out["transforms_60s"] = _transform_checks(torch, np, dev, xs)
+    say(f"transforms 60 s: {json.dumps(out['transforms_60s'])}")
+
+    # (c) separate-lead's three models on the 60 s recording at the CLI's
+    # defaults (40 accompaniment components, 30 SIMM iterations, 20 EM)
+    kw = dict(LEAD_KW, n_accomp=40)
+    long = {"mono": lambda: separate_lead(xs.mean(axis=0), n_iter=30, device=dev, **kw),
+            "stereo": lambda: separate_lead_stereo(xs, n_iter=30, device=dev, **kw),
+            "multichannel": lambda: separate_lead_multichannel(
+                xs, n_iter_simm=30, n_em=20, device=dev, **kw)}
+    out["speech_60s"] = {}
+    for name, fn in long.items():
+        _, cold = _fenced(torch, dev, fn)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, warm = _fenced(torch, dev, fn)
+        peak = torch.cuda.max_memory_allocated(dev)
+        p = _lead_point(np, res, None)
+        dev_ms, per = device_profile(fn)
+        r = {"seconds": seconds, "cold_s": cold, "warm_s": warm,
+             "audio_s_per_s": seconds / warm, "device_ms": dev_ms,
+             "device_launches": sum(n for n, _ in per.values()),
+             "max_memory_allocated_gb": peak / 1e9, **p,
+             "top_device": sorted(((round(ms, 3), n, k[:60]) for k, (n, ms) in per.items()),
+                                  reverse=True)[:6]}
+        say(f"separate-lead 60 s {name}: {json.dumps(r)}")
+        if not p["finite"]:
+            fail(f"phase 11 (c) {name}: non-finite output on the 60 s recording")
+        out["speech_60s"][name] = r
+
+    # (e) the CLI in-process on the card
+    wav = os.path.join(root, "p11_mixture.wav")
+    write_wav(wav, x, 16000)
+    out["cli"] = {}
+    for model in ("mono", "stereo", "multichannel"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_main(["separate-lead", "--wav", wav, "--out-dir",
+                      os.path.join(root, f"p11_{model}"), "--model", model, "--components",
+                      "20", "--iters", "15", "--em-iters", "10", "--device", "cuda"])
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if set(res) != {"lead", "accomp", "sr", "channels", "voiced_frames", "f0_median"} or \
+                not all(os.path.isfile(res[k]) for k in ("lead", "accomp")):
+            fail(f"phase 11: the CLI's separate-lead --model {model} printed {res}")
+        say(f"separate-lead CLI --model {model} on the card: {json.dumps(res)}")
+        out["cli"][model] = res
+    out["launches"] = _counts(everything)
+    say(f"separate-lead: hand-written kernel launches on the path {json.dumps(out['launches'])}")
+    return out
+
+
 def single_train(dev, root: str, data: str, batch: int) -> dict:
     """Phase 9's data-parallel warp-train on one card: the same 5 epochs on
     the 8 pairs with ``batch`` utterances a step, after a 1-epoch warm run."""
@@ -2328,7 +2621,8 @@ def run_world(world: int, backend: str, root: str, corpus: tuple) -> list[dict]:
             ranks.append(json.load(f))
     say(f"parallel: world of {world} {backend} rank(s) in {time.perf_counter() - t0:.2f} s")
     for r, res in enumerate(ranks):
-        for key in ("nmf", "shard_kernels", "convert", "dtw_batch", "dtw_long", "train"):
+        for key in ("nmf", "shard_kernels", "separate_batch", "convert", "dtw_batch", "dtw_long",
+                    "train"):
             if key in res:
                 say(f"parallel [{backend} {world}, rank {r}] {key}: {json.dumps(res[key])}")
         say(f"parallel [{backend} {world}, rank {r}] path launches "
@@ -2403,6 +2697,7 @@ def main() -> None:
         stage02 = phase_stage02(torch, np, dev, root, corpus, counted, fused)
         par = phase_parallel(torch, np, dev, root, corpus)
         phase_separate(torch, np, dev, root, counted, fused)
+        phase_lead(torch, np, dev, root, counted, fused)
     if "jax" in sys.modules:
         fail("jax was imported")
     say(card)    # again beside the numbers, for a reader of the output's end

@@ -1,6 +1,7 @@
 """A stand-in corpus built from the 16 kHz speech committed under
 ``artifacts/audio/``, and the separation inputs: the benchmark's fixed
-synthetic stereo mixture and a two-talker mixture of that speech.
+synthetic stereo mixture, a two-talker mixture of that speech, and the
+JAX package's random inits of the lead-separation benchmark.
 
 The reference corpus (VCC SF1/TF1) is not in the repository. These files are
 earlier conversions of its utterances and keep their lengths, so a corpus
@@ -112,3 +113,18 @@ def speech_mixture(seconds: float = 60.0):
     s = 0.5 / np.abs(x).max()
     return ((s * x).astype(np.float32),
             np.stack([s * img_a, s * img_b]).astype(np.float32), sr)
+
+
+def jax_simm_draws() -> tuple[dict, dict]:
+    """The random inits that the JAX package's ``separate_lead_stereo(x,
+    key=jax.random.PRNGKey(1))`` draws on :func:`synthetic_mixture` at
+    ``bench_separate.py``'s settings (n_fft 1024, hop 256, f0 100-800 Hz, 20
+    accompaniment components): (round 1, round 2) dicts keyed as
+    ``stereo_simm``'s ``*_init`` arguments, float32 numpy. Written by
+    ``tools/jax_simm_draws.py``; ``separate_lead_stereo(..., round1_init=,
+    round2_init=)`` starts from them where the JAX package's operating-point
+    test starts."""
+    path = Path(__file__).parent / "data" / "jax_simm_draws_key1.npz"
+    with np.load(path) as f:
+        return tuple({k[len(f"round{i}_"):]: f[k] for k in f.files if k.startswith(f"round{i}_")}
+                     for i in (1, 2))

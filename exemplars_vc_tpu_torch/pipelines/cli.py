@@ -10,9 +10,9 @@ Usage::
     python -m exemplars_vc_tpu_torch.pipelines.cli warp-train --data DATA --device cpu
 
 ``-o section.key=value`` overrides the configuration. ``separate`` runs the
-multichannel separation (``--seed`` seeds its torch generator);
-``separate-lead`` exists and raises: the lead family is not ported yet
-(ROADMAP queue 1 item 13).
+multichannel separation and ``separate-lead`` the lead/accompaniment
+separation (``--model mono|stereo|multichannel``); ``--seed`` seeds the
+torch generator that draws their random inits.
 """
 
 from __future__ import annotations
@@ -261,8 +261,46 @@ def cmd_separate(args):
 
 
 def cmd_separate_lead(args):
-    raise NotImplementedError(f"{args.cmd}: lead/accompaniment separation is not ported "
-                              "yet (ROADMAP queue 1 item 13)")
+    """Lead/accompaniment separation (SIMM family, ``separate/``): the
+    lead and accompaniment images as ``<wav>_lead.wav`` and
+    ``<wav>_accomp.wav`` under ``--out-dir``."""
+    import torch
+
+    from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
+
+    # the file's own channels: the stereo and multichannel models need the
+    # spatial image (separate_lead masks each channel)
+    x, sr = read_wav(args.wav, mono=False)
+    kw = dict(sample_rate=float(sr), n_fft=args.n_fft, hop_length=args.hop,
+              f0_min=args.f0_min, f0_max=args.f0_max, n_accomp=args.components,
+              generator=torch.Generator().manual_seed(args.seed), device=args.device)
+    if args.model == "mono":
+        from exemplars_vc_tpu_torch.separate import separate_lead
+
+        res = separate_lead(x, n_iter=args.iters, **kw)
+    elif args.model == "stereo":
+        from exemplars_vc_tpu_torch.separate import separate_lead_stereo
+
+        res = separate_lead_stereo(x, n_iter=args.iters, **kw)
+    else:  # multichannel: the composed source-F0-filter FASST model
+        from exemplars_vc_tpu_torch.separate import separate_lead_multichannel
+
+        res = separate_lead_multichannel(x, n_iter_simm=args.iters, n_em=args.em_iters, **kw)
+    os.makedirs(args.out_dir, exist_ok=True)
+    base = os.path.splitext(os.path.basename(args.wav))[0]
+    lead_p = os.path.join(args.out_dir, f"{base}_lead.wav")
+    acc_p = os.path.join(args.out_dir, f"{base}_accomp.wav")
+    lead = res.lead.cpu().numpy()
+    # the whole separated image, C channels; a mono input comes out (1, T)
+    write_wav(lead_p, lead, sr)
+    write_wav(acc_p, res.accomp.cpu().numpy(), sr)
+    f0 = np.asarray(res.f0)
+    print(json.dumps({
+        "lead": lead_p, "accomp": acc_p, "sr": sr,
+        "channels": int(lead.shape[0]),
+        "voiced_frames": int((f0 > 0).sum()),
+        "f0_median": float(np.median(f0[f0 > 0])) if (f0 > 0).any() else 0.0,
+    }))
 
 
 def main(argv=None):
@@ -358,7 +396,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_separate)
 
     p = sub.add_parser("separate-lead", help="lead/accompaniment separation "
-                                             "(not ported: queue 1 item 13)")
+                                             "(SIMM / stereo SIMM / composed "
+                                             "multichannel, separate/)")
     p.add_argument("--wav", required=True, help="mixture wav")
     p.add_argument("--out-dir", required=True)
     p.add_argument("--model", default="stereo", choices=["mono", "stereo", "multichannel"])
@@ -371,7 +410,8 @@ def main(argv=None):
     p.add_argument("--f0-max", type=float, default=800.0)
     p.add_argument("--n-fft", type=int, default=1024)
     p.add_argument("--hop", type=int, default=256)
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0, help="seed of the torch generator "
+                                                        "that draws the random inits")
     _add_device(p)
     p.set_defaults(fn=cmd_separate_lead)
 

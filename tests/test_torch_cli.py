@@ -29,6 +29,7 @@ JAX_KEYS = {
                 "timings"},
     "eval-heldout": {"utterance", "no_conversion_mcd_db", "scores"},
     "separate": {"out", "sr", "nll_first", "nll_last"},
+    "separate-lead": {"lead", "accomp", "sr", "channels", "voiced_frames", "f0_median"},
 }
 
 
@@ -91,17 +92,29 @@ def test_convert_and_eval_heldout(corpus, capsys):
 
 @pytest.mark.parametrize("cmd", ["separate", "separate-lead"])
 def test_separation_is_not_ported(cmd, tmp_path, capsys):
-    """``separate`` runs (on a short stereo wav, the JAX CLI's keys);
-    ``separate-lead`` still refuses, naming its ROADMAP item."""
-    if cmd == "separate-lead":
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-            main([cmd, "--wav", "x.wav", "--out-dir", str(tmp_path), "--device", "cpu"])
-        return
+    """Both separation commands run (the name is kept from when
+    ``separate-lead`` refused): ``separate`` and ``separate-lead`` with each
+    ``--model`` on a short stereo wav print the JAX CLI's keys and write
+    their wavs."""
     from exemplars_vc_tpu_torch.io.standin import synthetic_mixture
-    from exemplars_vc_tpu_torch.io.wav import write_wav
+    from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
 
     wav = str(tmp_path / "mix.wav")
     write_wav(wav, synthetic_mixture()[:, :8000], 16000)
+    if cmd == "separate-lead":
+        for model in ("mono", "stereo", "multichannel"):
+            out_dir = tmp_path / model
+            out = run(capsys, cmd, "--wav", wav, "--out-dir", str(out_dir), "--model", model,
+                      "--iters", "3", "--em-iters", "2", "--components", "4",
+                      "--device", "cpu")
+            assert set(out) == JAX_KEYS["separate-lead"] and out["sr"] == 16000, model
+            assert out["lead"] == str(out_dir / "mix_lead.wav")
+            assert out["accomp"] == str(out_dir / "mix_accomp.wav")
+            assert out["channels"] == 2 and out["voiced_frames"] >= 0
+            for p in (out["lead"], out["accomp"]):
+                y, sr = read_wav(p, mono=False)
+                assert sr == 16000 and y.shape == (2, 8000), (model, p)
+        return
     out = run(capsys, cmd, "--wav", wav, "--out-dir", str(tmp_path / "sep"), "--em-iters", "3",
               "--components", "4", "--device", "cpu")
     assert set(out) == JAX_KEYS["separate"] and out["sr"] == 16000

@@ -145,5 +145,34 @@ def train_case(rank, world, data, store_root, leaves, overrides):
     return {"metrics": m, "params": store.load(m["checkpoint"])}
 
 
+def separate_batch_case(rank, world, X, n_em, inits):
+    """``separate_batch`` of the whole batch over a mesh of every rank,
+    from the given inits (W0, H0, R0) or, with None, from a generator of
+    seed 0."""
+    from exemplars_vc_tpu_torch.parallel.sharded_separate import separate_batch
+
+    mesh = make_mesh(data=world, dict_=1)
+    W0, H0, R0 = inits if inits is not None else (None, None, None)
+    images, nll = separate_batch(X, n_sources=2, n_components=2, n_em=n_em, mesh=mesh,
+                                 W0=W0, H0=H0, R0=R0, device="cpu")
+    return {"images": images.full_tensor(), "nll": nll.full_tensor(),
+            "local": images.to_local(), "placements": [(type(p).__name__, getattr(p, "dim", None)) for p in images.placements]}
+
+
+def nsgt_case(rank, world, x):
+    """The NSGT and its inverse on this rank's shard of a signal batch,
+    gathered over the mesh's data axis."""
+    from exemplars_vc_tpu_torch.dsp.nsgt import insgt, nsgt
+    from exemplars_vc_tpu_torch.parallel.distributed import all_gather_cat
+
+    mesh = make_mesh(data=world, dict_=1)
+    xs = shard_batch(x, mesh, device="cpu")
+    c = nsgt(xs.to_local(), sr=16000, fmin=150.0, device="cpu")
+    back = insgt(c, x.shape[-1], sr=16000, fmin=150.0, device="cpu")
+    group = mesh.group("data")
+    return {"c": all_gather_cat(c, group), "back": all_gather_cat(back, group)}
+
+
 CASES = {f.__name__[:-5]: f for f in (nmf_case, sharded_solve_case, dtw_batch_case,
-                                      placement_case, long_dtw_case, convert_case, train_case)}
+                                      placement_case, long_dtw_case, convert_case, train_case,
+                                      separate_batch_case, nsgt_case)}
