@@ -50,6 +50,7 @@ into the result, and prints one JSON line to stdout.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -150,7 +151,6 @@ def main() -> None:
     from dataclasses import replace
 
     from exemplars_vc_tpu_torch.config import load_config
-    from exemplars_vc_tpu_torch.dsp import griffin_lim as gl_mod
     from exemplars_vc_tpu_torch.io.standin import build_standin_corpus
     from exemplars_vc_tpu_torch.io.store import ArtifactStore, list_speaker_wavs
     from exemplars_vc_tpu_torch.io.wav import read_wav
@@ -161,6 +161,7 @@ def main() -> None:
     from exemplars_vc_tpu_torch.pipelines.serve import Converter
     from exemplars_vc_tpu_torch.pipelines.stream import StreamingConverter
 
+    gl_mod = importlib.import_module("exemplars_vc_tpu_torch.dsp.griffin_lim")
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

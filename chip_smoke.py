@@ -243,12 +243,38 @@ Phases (any failure exits non-zero and prints no result line):
    a stereo wav: the JAX CLI's six JSON keys and two wavs. Nothing in the
    phase catches a failure.
 
+12. the JAX package's last public functions, on the stand-in corpus at the
+   main path's width (counters set to 0 before (a) and read after it). (a)
+   ``obs.trace_to`` around one ``convert_utterance`` with its MCD, from a
+   fresh store with the dictionary memo cleared: the one trace file it
+   writes must name ``dtw_wavefront_kernel``, ``dtw_backtrace_kernel``,
+   ``nmf_recon_kernel`` and ``nmf_update_kernel`` as device events, every
+   kernel of the path must have launched and no fused one. (b)
+   ``align.build_exemplar_dicts`` on ``dtw_batch``'s paths of the 8 × 1408
+   × 20 MFCC pairs and the |STFT| features: bit-equal to the rows
+   ``build_exemplar_dicts_padded`` keeps, and on the card bit-equal to the
+   CPU run on the CPU run's paths and features (whether the two runs'
+   paths agree is printed). (c) Against the port's CPU run on the same
+   inputs: ``extract_stft_features_stacked`` of the 8 source utterances
+   (rtol 1e-5 with a floor of 1e-5 of the peak, equal frame counts, padded
+   frames 0), ``mcep_to_spectrum`` of the held-out target's MCEPs (1e-5
+   relative), ``spectral_convergence`` of the converted magnitude against
+   the input's (1e-6 relative), ``warping_forward_batch`` and
+   ``warping_forward`` at the default net on the MFCC batch (1e-5
+   absolute). (d) ``pipelines.cli.main(["separate", ...])`` on the 2 s
+   mixture written as a stereo wav with distinct channels: its wavs' energies
+   within 0.3 % and its ``nll_last`` within 1e-4 of ``separate_signal`` on
+   the duplicated downmix from the same generator seed (the distance to the
+   fit of the file's own channels is printed). Each step's walls (cold,
+   then warm) are printed. Nothing in the phase catches a failure.
+
 The line before the last is ``{"kernels": [...]}`` (``launches``: the main
 path's, and for the two fused kernels the fused path's; ``launches_serving``:
 the serving phase's; ``launches_world``: the WORLD phase's;
 ``launches_stage02``: phase 8's; ``launches_parallel``: phase 9's rank 0 in
-the two-rank world; the DTW kernels also carry their time and bound at the
-DFW shape, ``dfw_ms`` and ``dfw_bound_ms``, and the wavefront its tile
+the two-rank world; ``launches_surface``: phase 12's traced conversion; the
+DTW kernels also carry their time and bound at the DFW shape, ``dfw_ms``
+and ``dfw_bound_ms``, and the wavefront its tile
 mode's launches in phase 9, ``tile_launches_parallel``, its time with and
 without codes, bound and largest error against the twin; ``nmf_recon`` and
 ``nmf_update`` their largest error against the twin at phase 9's shards,
@@ -260,6 +286,7 @@ real corpus's.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import math
@@ -895,12 +922,12 @@ def phase_kernels(torch, np, dev) -> dict:
 def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
                     fused: dict) -> tuple[dict, float]:
     from exemplars_vc_tpu_torch.config import load_config
-    from exemplars_vc_tpu_torch.dsp import griffin_lim as gl_mod
     from exemplars_vc_tpu_torch.io.store import ArtifactStore
     from exemplars_vc_tpu_torch.io.wav import read_wav
     from exemplars_vc_tpu_torch.pipelines.conv_dicts import extract_stft_complex
     from exemplars_vc_tpu_torch.pipelines.convert import _aligned_dicts, convert_utterance
 
+    gl_mod = importlib.import_module("exemplars_vc_tpu_torch.dsp.griffin_lim")
     data, src, tar = corpus
     cfg = load_config(overrides=["data.tar=TF1", "misc.nb_file=8"])
     audio_s = 0.0
@@ -1173,7 +1200,6 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     from dataclasses import replace
 
     from exemplars_vc_tpu_torch.config import load_config
-    from exemplars_vc_tpu_torch.dsp import griffin_lim as gl_mod
     from exemplars_vc_tpu_torch.io.store import ArtifactStore, list_speaker_wavs
     from exemplars_vc_tpu_torch.io.wav import read_wav
     from exemplars_vc_tpu_torch.pipelines import convert as convert_mod
@@ -1184,6 +1210,7 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     from exemplars_vc_tpu_torch.pipelines.serve import Converter
     from exemplars_vc_tpu_torch.pipelines.stream import StreamingConverter
 
+    gl_mod = importlib.import_module("exemplars_vc_tpu_torch.dsp.griffin_lim")
     warps = "data.dict_augment_warps=0.9,0.95,1.05,1.1"
     base = ["data.tar=TF1", "misc.nb_file=8"]
     cfg_frob = load_config(overrides=base + [warps])
@@ -2584,6 +2611,197 @@ def phase_lead(torch, np, dev, root: str, counted: dict, fused: dict) -> dict:
     return out
 
 
+def _trace_kernels(trace_dir: str, names) -> dict:
+    """Device kernel events of the one ``*.pt.trace.json`` under
+    ``trace_dir``, counted by which of ``names`` they contain, and the
+    trace's size in MB."""
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(trace_dir) for f in fs
+             if f.endswith(".pt.trace.json")]
+    if len(paths) != 1:
+        fail(f"phase 12: trace_to wrote {paths} under {trace_dir}, not one trace")
+    with open(paths[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    found = {name: sum(1 for ev in events if ev.get("cat") == "kernel"
+                       and name in ev.get("name", "")) for name in names}
+    return {"kernel_events": found, "trace_mb": os.path.getsize(paths[0]) / 1e6}
+
+
+def phase_surface(torch, np, dev, root: str, corpus: tuple, counted: dict,
+                  fused: dict) -> dict:
+    """The JAX package's last public functions and the CLI's ``separate``
+    read on the card (module docstring, phase 12)."""
+    from exemplars_vc_tpu_torch.align import build_exemplar_dicts, dtw_batch
+    from exemplars_vc_tpu_torch.align.exemplar import build_exemplar_dicts_padded
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.dsp import mcep, mcep_to_spectrum
+    from exemplars_vc_tpu_torch.io.standin import synthetic_mixture
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore, load_speaker
+    from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
+    from exemplars_vc_tpu_torch.models import (
+        WarpingNetConfig, init_warping_params, warping_forward, warping_forward_batch)
+    from exemplars_vc_tpu_torch.obs import spectral_convergence, trace_to
+    from exemplars_vc_tpu_torch.pipelines import convert as convert_mod
+    from exemplars_vc_tpu_torch.pipelines import convert_utterance
+    from exemplars_vc_tpu_torch.pipelines.cli import main as cli_main
+    from exemplars_vc_tpu_torch.pipelines.conv_dicts import (
+        build_conversion_dicts_pair, extract_stft_features, extract_stft_features_stacked)
+    from exemplars_vc_tpu_torch.pipelines.make_dict import pair_mfcc
+    from exemplars_vc_tpu_torch.separate import separate_signal
+
+    data, src, tar = corpus
+    cfg = load_config(overrides=["data.tar=TF1", "misc.nb_file=8"])
+    cpu = torch.device("cpu")
+    walls, out = {}, {}
+
+    def timed(name, fn, reps=2):
+        """fn() ``reps`` times; its walls (the first cold) go to ``walls``."""
+        walls[name] = []
+        for _ in range(reps):
+            res, wall = _fenced(torch, dev, fn)
+            walls[name].append(wall)
+        return res
+
+    # (a) trace_to around one conversion and its MCD, the dictionaries
+    # rebuilt (memo cleared, a fresh store), so both DTW kernels run in it
+    kernels = ("dtw_wavefront_kernel", "dtw_backtrace_kernel", "nmf_recon_kernel",
+               "nmf_update_kernel")
+    everything = {**counted, **fused}
+    convert_mod._DICTS_MEMO.clear()
+    trace_dir = os.path.join(root, "p12_trace")
+    _zero(everything)
+    with trace_to(trace_dir):
+        res = timed("trace_to(convert_utterance + MCD)", lambda: convert_utterance(
+            cfg, ArtifactStore(os.path.join(root, "p12_store")), data, src, nb_file=8,
+            reference_wav=tar, device=dev), reps=1)
+    launches = _counts(everything)
+    tr = _trace_kernels(trace_dir, kernels)
+    say(f"surface: trace_to around convert_utterance + MCD: kernel events in the trace "
+        f"{json.dumps(tr['kernel_events'])}, wrapper launches {json.dumps(launches)}, trace "
+        f"{tr['trace_mb']:.3f} MB, MCD {res.mcd_vs_reference:.4f} dB")
+    if min(tr["kernel_events"].values()) < 1:
+        fail(f"phase 12: the trace lacks a main-path kernel as a device event: {tr}")
+    if min(launches[k] for k in counted) < 1 or max(launches[k] for k in fused) > 0:
+        fail(f"phase 12: launches in the traced conversion {launches}")
+    if res.mcd_vs_reference is None or not np.isfinite(res.mcd_vs_reference):
+        fail(f"phase 12: MCD {res.mcd_vs_reference}")
+    out.update(trace=tr, launches=launches)
+
+    # (b) the ragged exemplar dictionaries on the main path's 8 × 1408 × 20
+    # MFCC pairs and |STFT| features, on the card and in the CPU run
+    runs = []
+    for d in (dev, cpu):
+        (FA, la), (FB, lb) = pair_mfcc(cfg, data, 8, d)
+        r = dtw_batch(FA, FB, la, lb)
+        sf, tf = build_conversion_dicts_pair(cfg, ArtifactStore(os.path.join(root, "p12_dicts")),
+                                             data, "SF1", "TF1", nb_file=8, device=d)
+        runs.append((FA, r, sf.feats["stft"], tf.feats["stft"]))
+    (FA, r, SA, SB), (_, rc, SAc, SBc) = runs
+    A, B = timed("build_exemplar_dicts", lambda: build_exemplar_dicts(
+        SA, SB, r.path_i, r.path_j, r.path_len))
+    k = A.shape[0]
+    Ap, Bp = build_exemplar_dicts_padded(SA, SB, r.path_i, r.path_j,
+                                         k_pad=((k + 511) // 512) * 512)
+    if not (k == int(r.path_len.sum()) and torch.equal(A, Ap[:k]) and torch.equal(B, Bp[:k])
+            and not Ap[k:].any() and not Bp[k:].any()):
+        fail("phase 12: build_exemplar_dicts differs from the rows build_exemplar_dicts_padded "
+             "keeps")
+    Ac, Bc = build_exemplar_dicts(SAc, SBc, rc.path_i, rc.path_j, rc.path_len)
+    Ag, Bg = build_exemplar_dicts(*(t.to(dev) for t in (SAc, SBc, rc.path_i, rc.path_j,
+                                                        rc.path_len)))
+    if not (torch.equal(Ag.cpu(), Ac) and torch.equal(Bg.cpu(), Bc)):
+        fail("phase 12: build_exemplar_dicts on the card differs from the CPU run on the CPU "
+             "run's paths and features")
+    same_paths = bool(torch.equal(r.path_i.cpu(), rc.path_i) and torch.equal(
+        r.path_j.cpu(), rc.path_j))
+    out["exemplars"] = {"K": k, "K_cpu": Ac.shape[0], "D": A.shape[1],
+                        "paths_equal_card_vs_cpu": same_paths,
+                        "path_entries_equal": float((r.path_i.cpu() == rc.path_i).double().mean())}
+    say(f"surface: build_exemplar_dicts {json.dumps(out['exemplars'])}: bit-equal to the padded "
+        f"build's kept rows, and to the CPU run on the CPU run's paths")
+
+    # (c) the other functions, each against the port's CPU run on the same inputs
+    sigs, _ = load_speaker(data, "SF1", nb_file=8, cpu_rate=cfg.misc.cpu_rate)
+    mags, lens = timed("extract_stft_features_stacked",
+                       lambda: extract_stft_features_stacked(sigs, cfg, dev))
+    mags_c, lens_c = extract_stft_features_stacked(sigs, cfg, cpu)
+    # the tests' rule, rtol 1e-5 with a floor of 1e-5 of the peak: at most 1 passes
+    e_stft = float(((mags.cpu() - mags_c).abs()
+                    / (1e-5 * (mags_c.abs() + mags_c.abs().max()))).max())
+    pad_zero = all(not mags[i, n:].any() for i, n in enumerate(lens))
+    m = cfg.mcep
+    c = mcep(torch.as_tensor(read_wav(tar)[0], dtype=torch.float32),
+             frame_length=m.frame_length, hop_length=m.hop_length, order=m.order,
+             alpha=m.alpha)
+    spec = timed("mcep_to_spectrum", lambda: mcep_to_spectrum(c.to(dev), alpha=m.alpha))
+    spec_c = mcep_to_spectrum(c, alpha=m.alpha)
+    e_mcep = float(((spec.cpu() - spec_c).abs() / spec_c.abs()).max())
+    Y, S = res.converted["stft"], extract_stft_features(read_wav(src)[0], cfg, dev)
+    sc = timed("spectral_convergence", lambda: spectral_convergence(Y, S))
+    sc_c = spectral_convergence(Y.cpu(), S.cpu())
+    e_sc = abs(float(sc) - float(sc_c)) / abs(float(sc_c))
+    net_c = init_warping_params(WarpingNetConfig(), torch.Generator().manual_seed(0))
+    net = init_warping_params(WarpingNetConfig(), torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        wb = timed("warping_forward_batch", lambda: warping_forward_batch(net, FA))
+        wb_c = warping_forward_batch(net_c, FA.cpu())
+        w1 = warping_forward(net, FA[0])
+    e_warp = float((wb.cpu() - wb_c).abs().max())
+    e_warp1 = float((w1.cpu() - wb_c[0]).abs().max())
+    out["functions"] = {
+        "stft_features": {"shape": list(mags.shape), "lens_equal": bool(np.array_equal(
+            lens, lens_c)), "padded_frames_zero": pad_zero, "err_over_tol": e_stft},
+        "mcep_to_spectrum": {"shape": list(spec.shape), "rel_err": e_mcep},
+        "spectral_convergence": {"card": float(sc), "cpu": float(sc_c), "rel": e_sc},
+        "warping_forward_batch": {"shape": list(wb.shape), "max_abs_err": e_warp,
+                                  "single_vs_batch_cpu_max_abs_err": e_warp1}}
+    say(f"surface: functions card vs CPU {json.dumps(out['functions'])}")
+    if e_stft > 1 or not pad_zero or not np.array_equal(lens, lens_c):
+        fail("phase 12: extract_stft_features_stacked differs from the CPU run (rtol 1e-5, "
+             "floor 1e-5 of the peak), or a padded frame is not 0")
+    if e_mcep > 1e-5:
+        fail(f"phase 12: mcep_to_spectrum {e_mcep:.3g} relative from the CPU run (limit 1e-5)")
+    if e_sc > 1e-6:
+        fail(f"phase 12: spectral_convergence {e_sc:.3g} relative from the CPU run (limit 1e-6)")
+    if e_warp > 1e-5 or e_warp1 > 1e-5:
+        fail(f"phase 12: warping_forward(_batch) {e_warp:.3g} / {e_warp1:.3g} from the CPU run "
+             f"(limit 1e-5)")
+
+    # (d) the CLI's separate on a stereo wav with distinct channels separates
+    # the duplicated downmix: separate_signal on (mean, mean) from the same
+    # inits (the same generator seed), and not the file's own channels
+    x = synthetic_mixture()
+    wav = os.path.join(root, "p12_stereo.wav")
+    write_wav(wav, x, 16000)
+    mono = read_wav(wav)[0]
+    kw = dict(n_sources=2, n_components=8, n_em=20, n_fft=400, hop_length=80)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        timed("separate CLI (stereo wav)", lambda: cli_main([
+            "separate", "--wav", wav, "--out-dir", os.path.join(root, "p12_sep"),
+            "--components", "8", "--em-iters", "20", "--seed", "0", "--device", str(dev)]))
+    cli = json.loads(buf.getvalue().strip().splitlines()[-1])
+    img, model = separate_signal(np.stack([mono, mono]), device=dev,
+                                 generator=torch.Generator().manual_seed(0), **kw)
+    img_st, _ = separate_signal(read_wav(wav, mono=False)[0], device=dev,
+                                generator=torch.Generator().manual_seed(0), **kw)
+    got = np.stack([read_wav(p)[0] for p in cli["out"]])
+    e, e_ref, e_st = ((a.astype(np.float64) ** 2).sum(axis=-1) for a in (
+        got, img.mean(dim=1).cpu().numpy(), img_st.mean(dim=1).cpu().numpy()))
+    d_energy = float((np.abs(e - e_ref) / e_ref).max())
+    d_stereo = float((np.abs(e - e_st) / e_st).max())
+    nll = model.neg_log_like.cpu().numpy()
+    d_nll = abs(cli["nll_last"] - float(nll[-1])) / abs(float(nll[-1]))
+    out["cli"] = {"energy_rel_vs_downmix_fit": d_energy, "nll_last_rel": d_nll,
+                  "energy_rel_vs_channels_fit": d_stereo, "cli": cli}
+    say(f"surface: separate CLI on a stereo wav {json.dumps(out['cli'])}")
+    if d_energy > 3e-3 or d_nll > 1e-4:
+        fail(f"phase 12: the CLI's separate is not the fit of the duplicated downmix: image "
+             f"energies {d_energy:.3g} apart (limit 3e-3), nll_last {d_nll:.3g} (limit 1e-4)")
+    out["walls_s"] = walls
+    say(f"surface: walls (s) {json.dumps(walls)}")
+    return out
+
+
 def single_train(dev, root: str, data: str, batch: int) -> dict:
     """Phase 9's data-parallel warp-train on one card: the same 5 epochs on
     the 8 pairs with ``batch`` utterances a step, after a 1-epoch warm run."""
@@ -2698,6 +2916,7 @@ def main() -> None:
         par = phase_parallel(torch, np, dev, root, corpus)
         phase_separate(torch, np, dev, root, counted, fused)
         phase_lead(torch, np, dev, root, counted, fused)
+        surface = phase_surface(torch, np, dev, root, corpus, counted, fused)
     if "jax" in sys.modules:
         fail("jax was imported")
     say(card)    # again beside the numbers, for a reader of the output's end
@@ -2708,6 +2927,7 @@ def main() -> None:
          "launches_serving": serving[name], "launches_world": world[name],
          "launches_stage02": stage02["launches"][name],
          "launches_parallel": par["launches"].get(name, 0),
+         "launches_surface": surface["launches"][name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],

@@ -24,3 +24,5 @@ own copies of the configuration, wav IO and the artifact store.
 from exemplars_vc_tpu_torch import device as _device  # noqa: F401  (fp32 parity flags)
 
 __version__ = "0.1.0"
+
+from exemplars_vc_tpu_torch.config import Config, load_config  # noqa: F401

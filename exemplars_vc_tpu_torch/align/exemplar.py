@@ -62,3 +62,24 @@ def alignment_keep_mask(feats_a: torch.Tensor, feats_b: torch.Tensor, path_i: to
 def apply_keep_mask(M: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """Zero the rows of (K, D) ``M`` where ``keep`` is False."""
     return M * keep[:, None].to(M.dtype)
+
+
+def build_exemplar_dicts(feats_a, feats_b, path_i, path_j, path_lens):
+    """(N, T, D) padded features + (N, P) DTW paths (−1 padded) + (N,) path
+    lengths → the ragged dictionaries (A, B), each (K, D) with K = Σ
+    path_lens: pair n's first ``path_lens[n]`` aligned rows, pair after
+    pair, as the reference list-extends them (``04_align_n_nmf.py:230-246``).
+
+    Takes tensors or numpy arrays and returns tensors on ``feats_a``'s
+    device in its dtype; the rows are those that
+    :func:`build_exemplar_dicts_padded` keeps first, bit for bit."""
+    fa = torch.as_tensor(feats_a)
+    dev = fa.device
+    fb = torch.as_tensor(feats_b, device=dev)
+    pi = torch.as_tensor(path_i, device=dev).long()
+    pj = torch.as_tensor(path_j, device=dev).long()
+    lens = torch.as_tensor(path_lens, device=dev).long()
+    n, p = pi.shape
+    take = torch.arange(p, device=dev)[None, :] < lens[:, None]
+    pair = torch.arange(n, device=dev)[:, None].expand(n, p)[take]
+    return fa[pair, pi[take]], fb[pair, pj[take]]

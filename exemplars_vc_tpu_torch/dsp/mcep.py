@@ -73,3 +73,10 @@ def mcep(x: torch.Tensor, frame_length: int = 400, hop_length: int = 80,
     frames = frames * get_window(window, frame_length, periodic=False,
                                  device=x.device, dtype=frames.dtype)
     return mcep_frames(frames, order=order, alpha=alpha, n_fft=n_fft, n_iter=n_iter)
+
+
+def mcep_to_spectrum(c: torch.Tensor, n_bins: int = 257, alpha: float = 0.42) -> torch.Tensor:
+    """Mel-cepstra (..., order+1) → linear power spectrum |D(ω)|² on (..., n_bins)."""
+    phi = torch.as_tensor(warped_basis(n_bins, c.shape[-1] - 1, alpha),
+                          dtype=c.dtype, device=c.device)
+    return torch.exp(2.0 * (c @ phi.T))

@@ -42,6 +42,11 @@ def stft(x: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
     return torch.fft.rfft(frame_signal(x, n_fft, hop_length) * w, n=n_fft)
 
 
+def stft_magnitude(x: torch.Tensor, **kw) -> torch.Tensor:
+    """|:func:`stft`|, with the same keywords."""
+    return torch.abs(stft(x, **kw))
+
+
 def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     """(..., n_frames, n_fft) → (..., n_fft + hop·(n_frames−1)) summed frames."""
     lead = frames.shape[:-2]

@@ -62,6 +62,16 @@ class WarpingNet(nn.Module):
         return self.head["fc3"](h)
 
 
+def warping_forward(net: WarpingNet, x: torch.Tensor) -> torch.Tensor:
+    """(T, in_size) → (T, out_size): one utterance through ``net``."""
+    return net(x[None])[0]
+
+
+def warping_forward_batch(net: WarpingNet, x: torch.Tensor) -> torch.Tensor:
+    """(N, T, in_size) → (N, T, out_size)."""
+    return net(x)
+
+
 def _jax_slots(cfg: WarpingNetConfig) -> list[tuple[str, str, str]]:
     """The leaves of the JAX parameter tree in ``jax.tree_util`` order (dict
     keys sorted, lists in order): (leaf path, module part, W or b) — the

@@ -31,3 +31,9 @@ def mcd_aligned(c_a: torch.Tensor, c_b: torch.Tensor) -> torch.Tensor:
     d = ga[..., 1:] - gb[..., 1:]
     per_frame = _MCD_CONST * torch.sqrt(torch.sum(d * d, dim=-1))
     return torch.sum(per_frame * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def spectral_convergence(mag_est: torch.Tensor, mag_ref: torch.Tensor) -> torch.Tensor:
+    """‖|X̂| − |X|‖_F / max(‖|X|‖_F, 1e-12)."""
+    return torch.linalg.norm(mag_est - mag_ref) / torch.clamp(torch.linalg.norm(mag_ref),
+                                                              min=1e-12)

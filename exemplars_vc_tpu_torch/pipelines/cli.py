@@ -237,12 +237,10 @@ def cmd_separate(args):
     from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
     from exemplars_vc_tpu_torch.separate import separate_signal
 
-    # the file's own channels: the JAX CLI reads this wav downmixed to mono
-    # and duplicates it, which leaves the spatial model no inter-channel cue
-    # (ROADMAP queue 3)
-    x, sr = read_wav(args.wav, mono=False)
-    if x.shape[0] == 1:   # mono input: duplicate to a 2-channel mixture
-        x = np.concatenate([x, x])
+    # as the JAX CLI reads it: the file downmixed to mono, duplicated to a
+    # 2-channel mixture (a stereo file's channels are averaged first)
+    x, sr = read_wav(args.wav)
+    x = np.stack([x, x])
     images, model = separate_signal(
         x, n_sources=args.sources, n_components=args.components,
         n_em=args.em_iters, n_fft=args.n_fft, hop_length=args.hop,

@@ -15,7 +15,12 @@ from exemplars_vc_tpu_torch.config import Config
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.dsp.stft import stft
 from exemplars_vc_tpu_torch.io.store import ArtifactStore, bucketed_signal, load_speaker
-from exemplars_vc_tpu_torch.pipelines.make_dict import host_copies, speaker_batch, trim_and_mask
+from exemplars_vc_tpu_torch.pipelines.make_dict import (
+    host_copies,
+    pad_signals,
+    speaker_batch,
+    trim_and_mask,
+)
 from exemplars_vc_tpu_torch.world.analysis import analyze
 
 log = logging.getLogger("exemplars_vc_tpu_torch")
@@ -45,6 +50,32 @@ def extract_stft_features(sig: np.ndarray, cfg: Config,
                           device: str | torch.device = "cuda") -> torch.Tensor:
     """|STFT| (F, bins) of one utterance on :func:`extract_stft_complex`'s grid."""
     return torch.abs(extract_stft_complex(sig, cfg, device))
+
+
+def extract_stft_features_stacked(sigs: list[np.ndarray], cfg: Config,
+                                  device: str | torch.device = "cuda"):
+    """Every utterance's |STFT| in one batched call: (N, T_pad, bins)
+    magnitudes on ``device`` and the true frame counts (N,) as int32.
+
+    The signals are zero-padded to one length, a multiple of hop ×
+    ``data.frame_bucket`` samples, so T_pad = 1 + that length // hop; the
+    frames at and beyond each utterance's 1 + samples // hop are zeroed
+    (the store's padded layout)."""
+    device = resolve_device(device)
+    m = cfg.mcep
+    batch = pad_signals(sigs, m.hop_length * cfg.data.frame_bucket)
+    lens = np.asarray([1 + len(s) // m.hop_length for s in sigs], np.int32)
+    mags = torch.abs(stft(torch.as_tensor(batch, device=device), n_fft=m.frame_length,
+                          hop_length=m.hop_length, window=m.window))
+    return trim_and_mask(mags, mags.shape[1], torch.as_tensor(lens, device=device)), lens
+
+
+def extract_stft_features_batch(sigs: list[np.ndarray], cfg: Config,
+                                device: str | torch.device = "cuda") -> list[torch.Tensor]:
+    """:func:`extract_stft_features_stacked` cut into one (F_i, bins)
+    magnitude an utterance."""
+    stacked, lens = extract_stft_features_stacked(sigs, cfg, device)
+    return [stacked[i, : lens[i]] for i in range(len(sigs))]
 
 
 def build_conversion_dicts_pair(cfg: Config, store: ArtifactStore, data_path: str,
@@ -100,12 +131,7 @@ def extract_world_features_stacked(sigs: list[np.ndarray], cfg: Config,
     device = resolve_device(device)
     w = cfg.world
     hop = _world_hop(cfg)
-    step = hop * cfg.data.frame_bucket
-    max_len = max(len(s) for s in sigs)
-    target = ((max_len + step - 1) // step) * step
-    batch = np.zeros((len(sigs), target), dtype=np.float32)
-    for i, s in enumerate(sigs):
-        batch[i, : len(s)] = s
+    batch = pad_signals(sigs, hop * cfg.data.frame_bucket)
     lens = np.asarray([len(s) // hop + 1 for s in sigs], np.int32)
     t_pad = ((int(lens.max()) + cfg.data.frame_bucket - 1)
              // cfg.data.frame_bucket) * cfg.data.frame_bucket
@@ -167,16 +193,10 @@ def build_conversion_dicts(cfg: Config, store: ArtifactStore, data_path: str, sp
         return ConversionFeatures(kind=kind, lens=lens, feats={
             name: torch.as_tensor(a, dtype=torch.float32, device=device)
             for name, a in z.items()})
-    if kind == "stft":
-        m = cfg.mcep
-        batch, samples = speaker_batch(data_path, speaker, nb,
-                                       m.hop_length * cfg.data.frame_bucket, cfg.misc.cpu_rate)
-        lens = (1 + samples // m.hop_length).astype(np.int32)
-        mags = torch.abs(stft(torch.as_tensor(batch, device=device), n_fft=m.frame_length,
-                              hop_length=m.hop_length, window=m.window))
-        mags = trim_and_mask(mags, mags.shape[1], torch.as_tensor(lens, device=device))
-        return ConversionFeatures(kind=kind, feats={"stft": mags}, lens=lens)
     sigs, _ = load_speaker(data_path, speaker, nb_file=nb, cpu_rate=cfg.misc.cpu_rate)
+    if kind == "stft":
+        mags, lens = extract_stft_features_stacked(sigs, cfg, device)
+        return ConversionFeatures(kind=kind, feats={"stft": mags}, lens=lens)
     feats, lens = extract_world_features_stacked(sigs, cfg, device)
     store.save(key, **host_copies(dict(feats, lens=lens)))
     return ConversionFeatures(kind=kind, feats=feats, lens=lens)

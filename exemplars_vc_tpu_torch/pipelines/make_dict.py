@@ -115,12 +115,18 @@ def speaker_batch(data_path: str, speaker: str, nb_file: int | None, step: int,
     true sample lengths (N,) — the numpy counterpart of the JAX package's
     ``io.store.stacked_speaker_batch``, which the port leaves out."""
     sigs, _ = load_speaker(data_path, speaker, nb_file=nb_file, cpu_rate=cpu_rate)
+    return pad_signals(sigs, step), np.asarray([len(s) for s in sigs], np.int64)
+
+
+def pad_signals(sigs: list[np.ndarray], step: int) -> np.ndarray:
+    """The signals zero-padded into one (N, T) float32 batch, T the longest
+    signal's length rounded up to a multiple of ``step``."""
     max_len = max(len(s) for s in sigs)
     target = ((max_len + step - 1) // step) * step
     batch = np.zeros((len(sigs), target), dtype=np.float32)
     for i, s in enumerate(sigs):
         batch[i, : len(s)] = s
-    return batch, np.asarray([len(s) for s in sigs], np.int64)
+    return batch
 
 
 def trim_and_mask(feats: torch.Tensor, t_pad: int, lens: torch.Tensor) -> torch.Tensor:

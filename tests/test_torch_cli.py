@@ -123,14 +123,20 @@ def test_separation_is_not_ported(cmd, tmp_path, capsys):
     assert out["nll_last"] <= out["nll_first"]
 
 
-def test_separate_matches_the_jax_cli_on_a_mono_wav(tmp_path, capsys, monkeypatch):
-    """On a mono wav both commands separate the same duplicated two-channel
-    mixture. The port's command is given the inits that the JAX command
-    draws for its seed (through ``separate_signal``). The NLLs agree to 1e-5
-    relative and the wavs to 1e-3 of their peak plus one PCM16 step.
+@pytest.mark.parametrize("channels", ["mono", "stereo"])
+def test_separate_matches_the_jax_cli_on_a_mono_wav(tmp_path, capsys, monkeypatch, channels):
+    """Both commands separate the same duplicated two-channel mixture: the
+    wav downmixed to mono, taken twice. The mono case is a one-channel wav;
+    the stereo case a wav with distinct channels, which the JAX command
+    averages before it duplicates them. The port's command is given the
+    inits that the JAX command draws for its seed on that input (through
+    ``separate_signal``). The NLLs agree to 1e-5 relative and the wavs to
+    1e-3 of their peak plus one PCM16 step.
 
-    That is ten times the stereo case's 1e-4: with equal channels nothing
-    spatial tells the two sources apart, and the EM amplifies roundoff. The
+    That is ten times the 1e-4 that ``separate_signal`` is held to on a
+    mixture with distinct channels (``test_torch_separate.py``): with equal
+    channels nothing spatial tells the two sources apart, and the EM
+    amplifies roundoff. The
     JAX package alone, given the same input times (1 + 2e-7·noise), moves
     its images by 2.3e-5, 2.1e-4 and 6.9e-4 of their peak after 1, 3 and 5
     EM iterations (4.8e-6 after 5 on the stereo mixture); the port against
@@ -145,8 +151,11 @@ def test_separate_matches_the_jax_cli_on_a_mono_wav(tmp_path, capsys, monkeypatc
     from exemplars_vc_tpu_torch.io.standin import synthetic_mixture
     from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
 
-    wav = str(tmp_path / "mono.wav")
-    write_wav(wav, synthetic_mixture()[0, :8000], 16000)
+    wav = str(tmp_path / f"{channels}.wav")
+    mix = synthetic_mixture()[:, :8000]
+    write_wav(wav, mix[0] if channels == "mono" else mix, 16000)
+    if channels == "stereo":
+        assert read_wav(wav, mono=False)[0].shape == (2, 8000)
     args = ["--wav", wav, "--em-iters", "3", "--components", "4", "--n-fft", "256",
             "--hop", "64", "--seed", "3"]
     jax_main(["separate", *args, "--out-dir", str(tmp_path / "jax")])

@@ -15,15 +15,15 @@ import pytest
 import torch
 
 from exemplars_vc_tpu.dsp.windows import get_window as jget_window
-from exemplars_vc_tpu_torch.dsp import mcep as tmcep
-from exemplars_vc_tpu_torch.dsp import mel as tmel
-from exemplars_vc_tpu_torch.dsp import stft as tstft
 from exemplars_vc_tpu_torch.dsp.windows import get_window
 
-# the JAX package's dsp/__init__ re-exports functions under the module names
+# both packages' dsp/__init__ re-export functions under the module names
 jmcep = importlib.import_module("exemplars_vc_tpu.dsp.mcep")
 jmel = importlib.import_module("exemplars_vc_tpu.dsp.mel")
 jstft = importlib.import_module("exemplars_vc_tpu.dsp.stft")
+tmcep = importlib.import_module("exemplars_vc_tpu_torch.dsp.mcep")
+tmel = importlib.import_module("exemplars_vc_tpu_torch.dsp.mel")
+tstft = importlib.import_module("exemplars_vc_tpu_torch.dsp.stft")
 
 
 def _close(got, ref, rtol=1e-5, floor=1e-5):
