@@ -74,6 +74,7 @@ def pct(vals: list[float], q: float) -> float:
 def bench_separate(torch, dev, card: str) -> dict:
     """``separate_signal`` cold and warm on the 2 s and the 60 s mixtures."""
     from exemplars_vc_tpu_torch.io.standin import speech_mixture, synthetic_mixture
+    from exemplars_vc_tpu_torch.prng import PRNGKey
     from exemplars_vc_tpu_torch.separate import separate_signal
 
     speech, _, sr = speech_mixture(seconds=60.0)
@@ -86,7 +87,7 @@ def bench_separate(torch, dev, card: str) -> dict:
             t0 = time.perf_counter()
             images, model = separate_signal(
                 x, n_sources=2, n_components=8, n_em=n_em, n_fft=400, hop_length=80,
-                generator=torch.Generator().manual_seed(0), device=dev)
+                key=PRNGKey(0), device=dev)
             images.cpu().numpy()
             nll = model.neg_log_like.cpu().numpy()
             return nll, time.perf_counter() - t0
@@ -104,16 +105,17 @@ def bench_separate_lead(torch, dev, card: str) -> dict:
     """The three lead-separation models cold and warm on the 2 s and the
     60 s mixtures."""
     from exemplars_vc_tpu_torch.io.standin import speech_mixture, synthetic_mixture
+    from exemplars_vc_tpu_torch.prng import PRNGKey
     from exemplars_vc_tpu_torch.separate import (
         separate_lead, separate_lead_multichannel, separate_lead_stereo)
 
     speech, _, sr = speech_mixture(seconds=60.0)
     kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0, f0_max=800.0,
               n_accomp=40, device=dev)
-    models = {"mono": lambda x, g: separate_lead(x.mean(axis=0), n_iter=30, generator=g, **kw),
-              "stereo": lambda x, g: separate_lead_stereo(x, n_iter=30, generator=g, **kw),
-              "multichannel": lambda x, g: separate_lead_multichannel(
-                  x, n_iter_simm=30, n_em=20, generator=g, **kw)}
+    models = {"mono": lambda x, k: separate_lead(x.mean(axis=0), n_iter=30, key=k, **kw),
+              "stereo": lambda x, k: separate_lead_stereo(x, n_iter=30, key=k, **kw),
+              "multichannel": lambda x, k: separate_lead_multichannel(
+                  x, n_iter_simm=30, n_em=20, key=k, **kw)}
     out = {}
     for mix, (x, seconds) in {"mixture_2s": (synthetic_mixture(), 2.0),
                               "speech_60s": (speech, speech.shape[1] / sr)}.items():
@@ -121,7 +123,7 @@ def bench_separate_lead(torch, dev, card: str) -> dict:
             def run():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                res = fn(x, torch.Generator().manual_seed(0))
+                res = fn(x, PRNGKey(0))
                 res.lead.cpu().numpy()
                 res.accomp.cpu().numpy()
                 return time.perf_counter() - t0

@@ -25,6 +25,7 @@ from collections import OrderedDict
 
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.dsp.stft import istft, stft
 
 # iterations a captured graph holds: blocks of 10 captured faster and
@@ -120,7 +121,7 @@ def _graphed_loop(mag: torch.Tensor, n_fft: int, hop_length: int,
 
 def griffin_lim(magnitude: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
                 n_iter: int = 300, length: int | None = None, momentum: float = 0.9,
-                generator: torch.Generator | None = None,
+                key: torch.Tensor | None = None,
                 init_phase: torch.Tensor | None = None,
                 return_phase: bool = False, _graph: bool = True):
     """(n_frames, n_bins) magnitude → time signal.
@@ -128,8 +129,8 @@ def griffin_lim(magnitude: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
     ``init_phase``: a complex STFT with at least ``n_frames`` frames whose
     angles seed the iteration (the source utterance's phase on the
     conversion path); exactly-zero bins get unit phase. Without it the
-    phases start uniform-random from ``generator`` (which must be given, on
-    the magnitude's device; its numbers differ from ``jax.random``'s).
+    phases start uniform-random, 2π·``uniform(key)`` (``key`` ``PRNGKey(0)``
+    when None, as in the JAX package; drawn on the CPU, then moved).
     On a CUDA tensor the iterations replay captured graphs (module
     docstring); a capture that fails raises."""
     mag = torch.clamp(magnitude, min=0.0).float()
@@ -139,9 +140,7 @@ def griffin_lim(magnitude: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
         angles = torch.where(a > 0.0, ip / torch.clamp(a, min=1e-16),
                              torch.ones((), dtype=torch.complex64, device=mag.device))
     else:
-        if generator is None:
-            raise ValueError("griffin_lim: random init needs an explicit torch.Generator")
-        u = torch.rand(mag.shape, generator=generator, device=mag.device)
+        u = prng.uniform(prng.key_or_default(key), mag.shape).to(mag.device)
         angles = torch.polar(torch.ones_like(u), 2.0 * math.pi * u)
 
     alpha = momentum / (1.0 + momentum)

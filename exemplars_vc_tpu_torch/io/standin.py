@@ -121,10 +121,19 @@ def jax_simm_draws() -> tuple[dict, dict]:
     ``bench_separate.py``'s settings (n_fft 1024, hop 256, f0 100-800 Hz, 20
     accompaniment components): (round 1, round 2) dicts keyed as
     ``stereo_simm``'s ``*_init`` arguments, float32 numpy. Written by
-    ``tools/jax_simm_draws.py``; ``separate_lead_stereo(..., round1_init=,
-    round2_init=)`` starts from them where the JAX package's operating-point
-    test starts."""
+    ``tools/jax_simm_draws.py``; the port's own draws of ``PRNGKey(1)``
+    (``separate_lead_stereo(..., key=prng.PRNGKey(1))``) are these, which a
+    run without JAX checks against this record."""
     path = Path(__file__).parent / "data" / "jax_simm_draws_key1.npz"
     with np.load(path) as f:
         return tuple({k[len(f"round{i}_"):]: f[k] for k in f.files if k.startswith(f"round{i}_")}
                      for i in (1, 2))
+
+
+def jax_prng_golden() -> dict:
+    """What ``jax.random`` and the JAX package's seeded sites and CLI
+    commands give on the CPU, for a run without JAX to hold ``prng`` to:
+    written by ``tools/jax_prng_golden.py`` (its docstring lists the
+    entries), numpy arrays by name."""
+    with np.load(Path(__file__).parent / "data" / "jax_prng_golden.npz") as f:
+        return {k: f[k] for k in f.files}

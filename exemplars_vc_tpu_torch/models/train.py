@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.align.exemplar import gather_aligned_batch
 from exemplars_vc_tpu_torch.config import Config
 from exemplars_vc_tpu_torch.device import resolve_device
@@ -183,7 +184,7 @@ def train_warping_net(cfg: Config, store: ArtifactStore, data_path: str,
     log.info("warping dataset (%s): %d train / %d test utterances, T=%d",
              features, len(idx_train), len(idx_test), src.shape[1])
     net_cfg = _net_config(cfg, features, src.shape[2], tar.shape[2])
-    net = init_warping_params(net_cfg, torch.Generator().manual_seed(seed)).to(device)
+    net = init_warping_params(prng.PRNGKey(seed), net_cfg).to(device)
     opt = reference_rmsprop(net, cfg.net.learning_rate, cfg.net.weight_decay)
 
     # standardize with the masked training-set statistics (stored with the

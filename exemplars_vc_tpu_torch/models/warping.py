@@ -21,6 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from exemplars_vc_tpu_torch import prng
+
 
 @dataclass(frozen=True)
 class WarpingNetConfig:
@@ -151,27 +153,41 @@ def warping_params_to_jax(net: WarpingNet) -> list[np.ndarray]:
     return out
 
 
-def init_warping_params(cfg: WarpingNetConfig,
-                        generator: torch.Generator | None = None) -> WarpingNet:
-    """A freshly initialised net (on the CPU), with the JAX package's
-    distributions: LSTM weights uniform in ±1/√H, biases 0 with the forget
-    gate's at 1; head weights uniform in ±1/√fan_in, biases 0."""
-    net = WarpingNet(cfg)
+def init_warping_params(key: torch.Tensor, cfg: WarpingNetConfig) -> WarpingNet:
+    """A freshly initialised net (on the CPU) holding the JAX package's
+    ``init_warping_params(key, cfg)`` draws: per LSTM layer and direction a
+    fused weight uniform in ±1/√H from the second half of a split of the
+    running key (biases 0, the forget gate's 1), then a five-way split whose
+    subkeys 1-3 draw the deep head and 4 the ``fc4`` head, uniform in
+    ±1/√fan_in. The bounds are float32 as JAX computes them."""
+    def scale(n: int) -> float:
+        return float(np.float32(1.0) / np.sqrt(np.float32(n)))
+
     h = cfg.hidden_size
+    n_dir = 2 if cfg.bidirectional else 1
+    tree: dict = {"lstm": [], "head": {}}
+    for layer in range(cfg.nb_lstm_layers):
+        d_in = cfg.in_size if layer == 0 else h * n_dir
+        dirs = {}
+        for direction in (["fwd", "bwd"] if cfg.bidirectional else ["fwd"]):
+            key, k1 = prng.split(key)
+            b = torch.zeros(4 * h)
+            b[h : 2 * h] = 1.0
+            dirs[direction] = {"W": prng.uniform(k1, (d_in + h, 4 * h), minval=-scale(h),
+                                                 maxval=scale(h)), "b": b}
+        tree["lstm"].append(dirs)
+    _, k1, k2, k3, k4 = prng.split(key, 5)
+    h_out = h * n_dir
 
-    def uniform_(t: torch.Tensor, fan: int) -> None:
-        s = 1.0 / np.sqrt(fan)
-        t.uniform_(-s, s, generator=generator)
+    def fc(k, n_in, n_out, s):
+        return {"W": prng.uniform(k, (n_in, n_out), minval=-s, maxval=s),
+                "b": torch.zeros(n_out)}
 
-    with torch.no_grad():
-        for name, p in net.lstm.named_parameters():
-            if name.startswith("weight"):
-                uniform_(p, h)
-            else:
-                p.zero_()
-                if name.startswith("bias_ih"):
-                    p[h : 2 * h] = 1.0
-        for fc in net.head.values():
-            uniform_(fc.weight, fc.in_features)
-            fc.bias.zero_()
-    return net
+    if cfg.deep_head:
+        s1, s2 = scale(h_out), scale(cfg.fc_neurons)
+        tree["head"] = {"fc1": fc(k1, h_out, cfg.fc_neurons, s1),
+                        "fc2": fc(k2, cfg.fc_neurons, cfg.fc_neurons, s2),
+                        "fc3": fc(k3, cfg.fc_neurons, cfg.out_size, s2)}
+    else:
+        tree["head"] = {"fc4": fc(k4, h_out, cfg.out_size, scale(h_out))}
+    return warping_params_from_jax(tree, cfg)

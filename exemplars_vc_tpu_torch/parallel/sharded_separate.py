@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh, shard_batch
 from exemplars_vc_tpu_torch.separate.multichannel import (
@@ -24,17 +25,18 @@ from exemplars_vc_tpu_torch.separate.multichannel import (
 )
 
 
-def batch_inits(generator: torch.Generator, M: int, J: int, F: int, K: int, N: int,
+def batch_inits(key: torch.Tensor, M: int, J: int, F: int, K: int, N: int,
                 C: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Every mixture's inits, drawn from the CPU ``generator`` in mixture
-    order, each mixture's in ``fit_multichannel_nmf``'s order (W, H, R):
-    W (M, J, F, K), H (M, J, K, N) squared normals and R (M, J, F, C, C)."""
-    W, H, R = [], [], []
-    for _ in range(M):
-        W.append(torch.randn((J, F, K), generator=generator) ** 2)
-        H.append(torch.randn((J, K, N), generator=generator) ** 2)
-        R.append(random_spatial_init(generator, J, F, C, device="cpu"))
-    return torch.stack(W), torch.stack(H), torch.stack(R)
+    """Every mixture's inits, drawn on the CPU from ``split(key, 3)`` as the
+    JAX package draws them: W (M, J, F, K) and H (M, J, K, N) squared
+    normals, one draw each, and R (M, J, F, C, C), mixture m's from the
+    m-th key of ``split(kr, M)`` (:func:`random_spatial_init`)."""
+    kw, kh, kr = prng.split(key, 3)
+    W = prng.normal(kw, (M, J, F, K)) ** 2
+    H = prng.normal(kh, (M, J, K, N)) ** 2
+    R = torch.stack([random_spatial_init(k, J, F, C, device="cpu")
+                     for k in prng.split(kr, M)])
+    return W, H, R
 
 
 def _local(t):
@@ -44,16 +46,14 @@ def _local(t):
 
 
 def separate_batch(X, n_sources: int = 2, n_components: int = 4, n_em: int = 30,
-                   n_nmf_inner: int = 1, generator: torch.Generator | None = None,
-                   mesh: Mesh | None = None, W0=None, H0=None, R0=None,
-                   device: str | torch.device = "cuda"):
+                   n_nmf_inner: int = 1, key: torch.Tensor | None = None,
+                   mesh: Mesh | None = None, device: str | torch.device = "cuda"):
     """Fit + separate a batch of mixture STFTs, split over the data axis.
 
     X: (M, F, N, C) complex mixture STFTs (pad ragged mixtures to a common
     frame count), the whole batch on every rank; M must divide by the
-    ``data`` axis' size. Inits not given (W0 (M, J, F, K), H0 (M, J, K, N),
-    R0 (M, J, F, C, C)) come from the CPU ``generator`` (seed 0 when None,
-    :func:`batch_inits`; every rank draws the whole batch's). Returns
+    ``data`` axis' size. The inits come from ``key`` (``PRNGKey(0)`` when
+    None, :func:`batch_inits`; every rank draws the whole batch's). Returns
     (images (M, J, F, N, C) complex64, the per-mixture negative
     log-likelihood traces (M, n_em)): ``DTensor``s sharded as X over a
     process group, plain tensors on ``device`` without one."""
@@ -65,13 +65,9 @@ def separate_batch(X, n_sources: int = 2, n_components: int = 4, n_em: int = 30,
     n_shards = mesh.shape[DATA_AXIS]
     if M % n_shards:
         raise ValueError(f"{M} mixtures not divisible by {n_shards} shards")
-    if W0 is None or H0 is None or R0 is None:
-        gen = torch.Generator().manual_seed(0) if generator is None else generator
-        draws = batch_inits(gen, M, n_sources, F, n_components, N, C)
-        W0, H0, R0 = (d if v is None else v for d, v in zip(draws, (W0, H0, R0)))
+    W0, H0, R0 = batch_inits(prng.key_or_default(key), M, n_sources, F, n_components, N, C)
     Xs = shard_batch(X, mesh, device=dev)
-    parts = [_local(shard_batch(torch.as_tensor(a).to(dt), mesh, device=dev))
-             for a, dt in ((W0, torch.float32), (H0, torch.float32), (R0, torch.complex64))]
+    parts = [_local(shard_batch(a, mesh, device=dev)) for a in (W0, H0, R0)]
     images, nlls = [], []
     for x, w, h, r in zip(_local(Xs), *parts):
         model = _em_loop(x, w, h, r, n_em, n_nmf_inner)

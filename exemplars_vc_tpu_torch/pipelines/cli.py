@@ -11,8 +11,9 @@ Usage::
 
 ``-o section.key=value`` overrides the configuration. ``separate`` runs the
 multichannel separation and ``separate-lead`` the lead/accompaniment
-separation (``--model mono|stereo|multichannel``); ``--seed`` seeds the
-torch generator that draws their random inits.
+separation (``--model mono|stereo|multichannel``); ``--seed`` is the seed of
+the PRNG key (``prng.PRNGKey``) their random inits are drawn from, as in the
+JAX CLI.
 """
 
 from __future__ import annotations
@@ -232,9 +233,8 @@ def cmd_eval_loo(args):
 def cmd_separate(args):
     """Multichannel NMF source separation (``separate/``): one wav a source
     under ``--out-dir``, channels averaged."""
-    import torch
-
     from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
+    from exemplars_vc_tpu_torch.prng import PRNGKey
     from exemplars_vc_tpu_torch.separate import separate_signal
 
     # as the JAX CLI reads it: the file downmixed to mono, duplicated to a
@@ -244,7 +244,7 @@ def cmd_separate(args):
     images, model = separate_signal(
         x, n_sources=args.sources, n_components=args.components,
         n_em=args.em_iters, n_fft=args.n_fft, hop_length=args.hop,
-        generator=torch.Generator().manual_seed(args.seed), device=args.device)
+        key=PRNGKey(args.seed), device=args.device)
     images = images.cpu().numpy()
     os.makedirs(args.out_dir, exist_ok=True)
     base = os.path.splitext(os.path.basename(args.wav))[0]
@@ -262,16 +262,15 @@ def cmd_separate_lead(args):
     """Lead/accompaniment separation (SIMM family, ``separate/``): the
     lead and accompaniment images as ``<wav>_lead.wav`` and
     ``<wav>_accomp.wav`` under ``--out-dir``."""
-    import torch
-
     from exemplars_vc_tpu_torch.io.wav import read_wav, write_wav
+    from exemplars_vc_tpu_torch.prng import PRNGKey
 
     # the file's own channels: the stereo and multichannel models need the
     # spatial image (separate_lead masks each channel)
     x, sr = read_wav(args.wav, mono=False)
     kw = dict(sample_rate=float(sr), n_fft=args.n_fft, hop_length=args.hop,
               f0_min=args.f0_min, f0_max=args.f0_max, n_accomp=args.components,
-              generator=torch.Generator().manual_seed(args.seed), device=args.device)
+              key=PRNGKey(args.seed), device=args.device)
     if args.model == "mono":
         from exemplars_vc_tpu_torch.separate import separate_lead
 
@@ -388,8 +387,8 @@ def main(argv=None):
     p.add_argument("--em-iters", type=int, default=50)
     p.add_argument("--n-fft", type=int, default=400)
     p.add_argument("--hop", type=int, default=80)
-    p.add_argument("--seed", type=int, default=0, help="seed of the torch generator "
-                                                        "that draws the random inits")
+    p.add_argument("--seed", type=int, default=0, help="seed of the PRNG key the "
+                                                        "random inits are drawn from")
     _add_device(p)
     p.set_defaults(fn=cmd_separate)
 
@@ -408,8 +407,8 @@ def main(argv=None):
     p.add_argument("--f0-max", type=float, default=800.0)
     p.add_argument("--n-fft", type=int, default=1024)
     p.add_argument("--hop", type=int, default=256)
-    p.add_argument("--seed", type=int, default=0, help="seed of the torch generator "
-                                                        "that draws the random inits")
+    p.add_argument("--seed", type=int, default=0, help="seed of the PRNG key the "
+                                                        "random inits are drawn from")
     _add_device(p)
     p.set_defaults(fn=cmd_separate_lead)
 

@@ -454,9 +454,8 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
                 y = griffin_lim(Y, n_fft=m.frame_length, hop_length=m.hop_length,
                                 n_iter=iters, length=len(x), init_phase=S_in)
             else:
-                gen = torch.Generator(device=device).manual_seed(0)
                 y = griffin_lim(Y, n_fft=m.frame_length, hop_length=m.hop_length,
-                                n_iter=iters, length=len(x), generator=gen)
+                                n_iter=iters, length=len(x))
         else:
             y = world_synthesize(converted, cfg, sr)
         audio = y.cpu().numpy()

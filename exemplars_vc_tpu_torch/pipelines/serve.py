@@ -78,11 +78,8 @@ class Converter:
     def _synthesize(self, Y: torch.Tensor, phase, length: int, synth_iters: int | None):
         m = self.cfg.mcep
         iters = synth_iters if synth_iters is not None else self.cfg.nmf.griffin_lim_iters
-        gen = None
-        if phase is None:
-            gen = torch.Generator(device=self.device).manual_seed(0)
         return griffin_lim(Y, n_fft=m.frame_length, hop_length=m.hop_length, n_iter=iters,
-                           length=length, init_phase=phase, generator=gen)
+                           length=length, init_phase=phase)
 
     def convert(self, wav_path: str, out_path: str | None = None,
                 synth_iters: int | None = None) -> Converted:

@@ -66,7 +66,7 @@ class StreamingConverter:
         else:
             full = torch.cat([self._context_mag, mag_new], dim=0)
             skip = self._context_mag.shape[0]
-        init_phase, gen = None, None
+        init_phase = None
         if phase_new is not None:
             # the chunk's own phase seeds its frames; the context frames take
             # the phase the previous push converged to, or unit phase where
@@ -80,11 +80,9 @@ class StreamingConverter:
                                         device=self.device)
                 ph = torch.cat([ctx_ph, ph], dim=0)
             init_phase = ph
-        else:
-            gen = torch.Generator(device=self.device).manual_seed(0)
         y_full, final_phase = griffin_lim(
             full, n_fft=m.frame_length, hop_length=hop, n_iter=self.synth_iters,
-            length=full.shape[0] * hop, init_phase=init_phase, generator=gen,
+            length=full.shape[0] * hop, init_phase=init_phase,
             return_phase=True)
         y = y_full.cpu().numpy()
         ctx = self.context_frames

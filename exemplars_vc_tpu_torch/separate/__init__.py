@@ -21,9 +21,10 @@
   and the ``multichanLead`` schedule.
 
 Every entry point takes ``device`` (default ``"cuda"``; a CUDA device
-without a card raises) and, where the JAX package takes a PRNG key, a
-``torch.Generator`` whose draws are made on the CPU and then moved. The
-Viterbi tracker is ``align.viterbi``.
+without a card raises) and, where the JAX package takes a PRNG key,
+``key``: a key of ``exemplars_vc_tpu_torch.prng`` (``PRNGKey(0)`` when None,
+as in the JAX package), split and drawn as the JAX package does, on the CPU,
+then moved. The Viterbi tracker is ``align.viterbi``.
 """
 
 from exemplars_vc_tpu_torch.separate.beamform import (

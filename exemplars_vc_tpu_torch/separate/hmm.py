@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.align.viterbi import viterbi_paths
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.separate.glue import _outer
@@ -162,9 +163,8 @@ def _em_loop_hmm(X: torch.Tensor, W: torch.Tensor, P: torch.Tensor, A: torch.Ten
 
 
 def fit_multichannel_hmm(X, n_sources: int = 2, n_states: int = 4, n_em: int = 50,
-                         sticky: bool = False, generator: torch.Generator | None = None,
-                         W_init=None, P_init=None, R_init=None,
-                         device: str | torch.device = "cuda") -> MultichannelNMF:
+                         sticky: bool = False, key: torch.Tensor | None = None,
+                         R_init=None, device: str | torch.device = "cuda") -> MultichannelNMF:
     """Fit the multichannel HMM local Gaussian model to a mixture STFT.
 
     pyfasst ``MultiChanHMM`` with ``makeItHMM`` (``sticky=False``: free
@@ -174,27 +174,24 @@ def fit_multichannel_hmm(X, n_sources: int = 2, n_states: int = 4, n_em: int = 5
     whose H is the (J, S, N) one-hot state-indicator matrix, so v_j = W_j·H_j
     and every downstream consumer works unchanged.
 
-    Inits not provided are drawn from the CPU ``generator`` (seed 0 when
-    None) in the order W (squared normals), R, P (uniform random states, one
-    path a source). The spatial perturbation takes ONE normal draw g for both
-    parts, a = g + i·g, as the JAX package does (it splits one key for both),
-    so every source starts with equal inter-channel phase."""
+    The inits are drawn from ``split(key, 3)`` (``key`` ``PRNGKey(0)`` when
+    None): W (squared normals), R (unless ``R_init`` is given) and P
+    (uniform random states, one path a source) from its subkeys 0, 1 and
+    2. The spatial perturbation takes ONE normal draw g for both parts,
+    a = g + i·g, as the JAX package does (it draws both from the same subkey), so every source
+    starts with equal inter-channel phase."""
     dev = resolve_device(device)
     X = _as_complex(X, dev)
     F, N, C = X.shape
     J, S = n_sources, n_states
-    gen = torch.Generator().manual_seed(0) if generator is None else generator
-    W = (torch.randn((J, F, S), generator=gen) ** 2 if W_init is None
-         else torch.as_tensor(W_init, dtype=torch.float32))
+    kw, kr, kp = prng.split(prng.key_or_default(key), 3)
+    W = prng.normal(kw, (J, F, S)) ** 2
     if R_init is None:
-        g = torch.randn((J, C), generator=gen)
+        g = prng.normal(kr, (J, C))
         R = _rank1_spatial(torch.complex(g, g), F, 0.2).to(dev)
     else:
         R = _as_complex(R_init, dev)
-    if P_init is None:
-        P = _one_hot(torch.randint(0, S, (J, N), generator=gen), S)
-    else:
-        P = torch.as_tensor(P_init, dtype=torch.float32)
+    P = _one_hot(prng.randint(kp, (J, N), 0, S).long(), S)
     A = (sticky_transition(S, device=dev) if sticky
          else torch.full((S, S), 1.0 / S, device=dev)).expand(J, S, S).contiguous()
     W, P, A, R, nlls = _em_loop_hmm(X, W.to(dev, torch.float32), P.to(dev), A, R,

@@ -3,14 +3,16 @@ of ``exemplars_vc_tpu/separate/isnmf.py``; pyfasst ``tools/nmf.py``).
 
 Full float32 matmuls throughout: the IS updates divide by v², and the
 package's device settings keep TF32 off (``device.py``). Random inits are
-drawn from a CPU ``torch.Generator`` and then moved, so one seed gives one
-start on every device.
+drawn on the CPU from the JAX package's keys, splits and samplers
+(``prng``) and then moved, so one key gives the JAX package's start on
+every device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.device import resolve_device
 
 _EPS = 1e-10  # pyfasst tools/nmf.py:22
@@ -51,35 +53,32 @@ def _update_H(SX, W, H):
     return H * _div(num, den)
 
 
-def _init(gen: torch.Generator, shape, provided, dev, squared: bool = True):
-    """A provided init as float32 on ``dev``, else g² (or (1 + g)²) of a
-    standard normal draw from the CPU generator."""
+def _init(key: torch.Tensor, shape, provided, dev, squared: bool = True):
+    """A provided init as float32 on ``dev``, else g² (or (1 + g)²) of the
+    standard normal draw of ``key`` (on the CPU, then moved)."""
     if provided is not None:
         return torch.as_tensor(provided, dtype=torch.float32, device=dev)
-    g = torch.randn(shape, generator=gen)
+    g = prng.normal(key, shape)
     return (g ** 2 if squared else (1.0 + g) ** 2).to(dev)
 
 
-def _generator(generator: torch.Generator | None) -> torch.Generator:
-    return torch.Generator().manual_seed(0) if generator is None else generator
-
-
 def is_nmf(SX, n_components: int = 10, n_iter: int = 10,
-           generator: torch.Generator | None = None, W_init=None, H_init=None,
+           key: torch.Tensor | None = None, W_init=None, H_init=None,
            update_W: bool = True, update_H: bool = True,
            device: str | torch.device = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """IS-divergence NMF of a power spectrogram: SX (F, N) ≈ W (F, K) · H (K, N).
 
     pyfasst ``NMF_decomp_init`` semantics: squared-normal inits where not
-    provided, W column-normalized after each W update with the scale
-    shipped into H, per-factor update switches. Per iteration: W then H,
-    each against a freshly computed reconstruction."""
+    provided (W from the first and H from the second half of ``split(key)``,
+    ``key`` ``PRNGKey(0)`` when None), W column-normalized after each W
+    update with the scale shipped into H, per-factor update switches. Per
+    iteration: W then H, each against a freshly computed reconstruction."""
     dev = resolve_device(device)
     SX = torch.as_tensor(SX, dtype=torch.float32, device=dev)
     F, N = SX.shape
-    gen = _generator(generator)
-    W = _init(gen, (F, n_components), W_init, dev)
-    H = _init(gen, (n_components, N), H_init, dev)
+    kw, kh = prng.split(prng.key_or_default(key))
+    W = _init(kw, (F, n_components), W_init, dev)
+    H = _init(kh, (n_components, N), H_init, dev)
     if update_W:  # tools/nmf.py:130-131
         W = W / W.sum(dim=0)
     for _ in range(n_iter):
@@ -92,7 +91,7 @@ def is_nmf(SX, n_components: int = 10, n_iter: int = 10,
 
 def sf_nmf(SX, n_components: int = 10, n_filt_components: int = 10,
            n_res_components: int = 2, n_iter: int = 10,
-           generator: torch.Generator | None = None,
+           key: torch.Tensor | None = None,
            W_init=None, H_init=None, W_filt_init=None, H_filt_init=None,
            W_res_init=None, H_res_init=None,
            update_W: bool = True, update_H: bool = True, update_W_filt: bool = True,
@@ -103,17 +102,20 @@ def sf_nmf(SX, n_components: int = 10, n_filt_components: int = 10,
     pyfasst ``SFNMF_decomp_init`` (``tools/nmf.py:161-360``): updates in
     the order W, H, WFilt, HFilt (per-frame filter renormalization shipping
     energy into H), then the residual pair (``update_res=False`` freezes
-    it). Returns (W, H, WFilt, HFilt, Wres, Hres)."""
+    it). Returns (W, H, WFilt, HFilt, Wres, Hres). Inits not provided are
+    drawn from ``split(key, 6)`` (``key`` ``PRNGKey(0)`` when None), one
+    subkey a factor in that order: g² for the first four, (1 + g)² for the
+    residual pair."""
     dev = resolve_device(device)
     SX = torch.as_tensor(SX, dtype=torch.float32, device=dev)
     F, N = SX.shape
-    gen = _generator(generator)
-    W = _init(gen, (F, n_components), W_init, dev)
-    H = _init(gen, (n_components, N), H_init, dev)
-    WF = _init(gen, (F, n_filt_components), W_filt_init, dev)
-    HF = _init(gen, (n_filt_components, N), H_filt_init, dev)
-    WR = _init(gen, (F, n_res_components), W_res_init, dev, squared=False)
-    HR = _init(gen, (n_res_components, N), H_res_init, dev, squared=False)
+    ks = prng.split(prng.key_or_default(key), 6)
+    W = _init(ks[0], (F, n_components), W_init, dev)
+    H = _init(ks[1], (n_components, N), H_init, dev)
+    WF = _init(ks[2], (F, n_filt_components), W_filt_init, dev)
+    HF = _init(ks[3], (n_filt_components, N), H_filt_init, dev)
+    WR = _init(ks[4], (F, n_res_components), W_res_init, dev, squared=False)
+    HR = _init(ks[5], (n_res_components, N), H_res_init, dev, squared=False)
     if update_W:
         W = W / W.sum(dim=0)
     if update_W_filt:

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.device import resolve_device
 
 _EPS = 1e-10
@@ -191,11 +192,7 @@ def separate_lead(
     melody_halfwidth_semitones: float = 0.5,
     transition_scale: float = 10.0,
     voicing_threshold: float = 0.05,
-    generator: torch.Generator | None = None,
-    H_init=None,
-    H_filt_init=None,
-    W_res_init=None,
-    H_res_init=None,
+    key: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
 ) -> LeadSeparation:
     """Separate the lead (melody) source from the accompaniment.
@@ -214,15 +211,14 @@ def separate_lead(
     x: (C, T) or (T,) audio. Frames whose lead share of model power is
     below ``voicing_threshold`` report f0 = 0 (unvoiced).
 
-    The random inits are drawn once from the CPU ``generator`` (seed 0 when
-    None), in the order H, H_filt, W_res, H_res with ``sf_nmf``'s
-    conventions, and every pass that would draw a factor takes that one
-    draw (as the JAX package's passes share one key). ``H_init``,
-    ``H_filt_init``, ``W_res_init`` and ``H_res_init`` replace the draws.
+    Every pass hands ``key`` (``PRNGKey(0)`` when None) to ``sf_nmf``, as
+    the JAX package does, so a factor a pass draws is the same draw in each
+    pass: H, H_filt, W_res and H_res from ``split(key, 6)``'s subkeys 1, 3,
+    4 and 5, drawn once here.
     """
     from exemplars_vc_tpu_torch.separate.glue import (
         host_mean_power, host_stft_stack, masked_istft)
-    from exemplars_vc_tpu_torch.separate.isnmf import _generator, _init, sf_nmf
+    from exemplars_vc_tpu_torch.separate.isnmf import _init, sf_nmf
 
     dev = resolve_device(device)
     x_np = _as_audio(x)
@@ -238,12 +234,12 @@ def separate_lead(
     WF0 = torch.as_tensor(harmonic_dictionary(grid, n_fft, sample_rate, n_harmonics),
                           device=dev)
     WGAMMA = torch.as_tensor(hann_filter_basis(F, n_filt_atoms), device=dev)
-    gen = _generator(generator)
+    ks = prng.split(prng.key_or_default(key), 6)   # sf_nmf's subkeys
     draws = dict(
-        H_init=_init(gen, (n_steps, N), H_init, dev),
-        H_filt_init=_init(gen, (n_filt_atoms, N), H_filt_init, dev),
-        W_res_init=_init(gen, (F, n_accomp), W_res_init, dev, squared=False),
-        H_res_init=_init(gen, (n_accomp, N), H_res_init, dev, squared=False))
+        H_init=_init(ks[1], (n_steps, N), None, dev),
+        H_filt_init=_init(ks[3], (n_filt_atoms, N), None, dev),
+        W_res_init=_init(ks[4], (F, n_accomp), None, dev, squared=False),
+        H_res_init=_init(ks[5], (n_accomp, N), None, dev, squared=False))
     base = dict(n_components=n_steps, n_filt_components=n_filt_atoms,
                 n_res_components=n_accomp, W_init=WF0, update_W=False,
                 W_filt_init=WGAMMA, update_W_filt=False, n_iter=n_iter, device=dev)

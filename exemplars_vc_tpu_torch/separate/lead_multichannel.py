@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.separate.multichannel import (
     _as_complex,
@@ -138,7 +139,7 @@ def fit_multichannel_sf(
     n_acc_components: int = 8,
     n_em: int = 30,
     n_inner: int = 1,
-    generator: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
     HF0_init=None,
     FW_init=None,
     TW_init=None,
@@ -151,28 +152,29 @@ def fit_multichannel_sf(
 
     X: (F, N, C) complex mixture STFT. Source 0 is the source/filter lead
     (WF0/WGAMMA fixed); sources 1..n_acc_sources are free NMF. Inits not
-    provided are drawn from the CPU ``generator`` (seed 0 when None) in the
-    order HF0, FW, TW, W, H — 0.75·|randn| + 0.25, pyfasst's
-    ``_initialize_structures`` (``audioModel.py:2650``) — then R
+    provided are drawn on the CPU from ``split(key, 6)`` (``key``
+    ``PRNGKey(0)`` when None), one subkey each in the order HF0, FW, TW, W,
+    H — 0.75·|randn| + 0.25, pyfasst's ``_initialize_structures``
+    (``audioModel.py:2650``) — then R
     (:func:`multichannel.random_spatial_init`)."""
     dev = resolve_device(device)
     X = _as_complex(X, dev)
     WF0 = torch.as_tensor(WF0, dtype=torch.float32, device=dev)
     WGAMMA = torch.as_tensor(WGAMMA, dtype=torch.float32, device=dev)
     F, N, C = X.shape
-    gen = torch.Generator().manual_seed(0) if generator is None else generator
+    ks = prng.split(prng.key_or_default(key), 6)
 
-    def init(shape, provided):
+    def init(k, shape, provided):
         if provided is not None:
             return torch.as_tensor(provided, dtype=torch.float32, device=dev)
-        return (0.75 * torch.randn(shape, generator=gen).abs() + 0.25).to(dev)
+        return (0.75 * prng.normal(k, shape).abs() + 0.25).to(dev)
 
-    HF0 = init((WF0.shape[1], N), HF0_init)
-    FW = init((WGAMMA.shape[1], n_filters), FW_init)
-    TW = init((n_filters, N), TW_init)
-    W = init((n_acc_sources, F, n_acc_components), W_init)
-    H = init((n_acc_sources, n_acc_components, N), H_init)
-    R = (random_spatial_init(gen, 1 + n_acc_sources, F, C, device=dev) if R_init is None
+    HF0 = init(ks[0], (WF0.shape[1], N), HF0_init)
+    FW = init(ks[1], (WGAMMA.shape[1], n_filters), FW_init)
+    TW = init(ks[2], (n_filters, N), TW_init)
+    W = init(ks[3], (n_acc_sources, F, n_acc_components), W_init)
+    H = init(ks[4], (n_acc_sources, n_acc_components, N), H_init)
+    R = (random_spatial_init(ks[5], 1 + n_acc_sources, F, C, device=dev) if R_init is None
          else _as_complex(R_init, dev))
     return _em_sf_loop(X, WF0, WGAMMA, HF0, FW, TW, W, H, R, int(n_em), int(n_inner))
 
@@ -205,9 +207,7 @@ def separate_lead_multichannel(
     n_em: int = 20,
     n_acc_sources: int = 1,
     spatial_init: str = "demix",
-    generator: torch.Generator | None = None,
-    round1_init: dict | None = None,
-    round2_init: dict | None = None,
+    key: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
 ) -> MultichannelLead:
     """The ``multichanLead.runDecomp`` estimation schedule
@@ -215,7 +215,7 @@ def separate_lead_multichannel(
 
     1. stereo SIMM lead/accompaniment separation
        (:func:`stereo_simm.separate_lead_stereo`, its random inits from
-       ``generator`` or ``round1_init``/``round2_init``);
+       the first half of ``split(key)``, ``key`` ``PRNGKey(0)`` when None);
     2. spatial parameters from the separated signals: DEMIX on the lead and
        accompaniment images (≙ ``demixOnSepSIMM`` ``audioModel.py:3325``;
        stereo only, any other channel count takes the empirical path), or
@@ -236,14 +236,14 @@ def separate_lead_multichannel(
     if x.ndim == 1:
         x = np.stack([x, x])
     C, T = x.shape
+    k1, k2 = prng.split(prng.key_or_default(key))
 
     # ---- 1. stereo SIMM warm start ----------------------------------------
     simm = separate_lead_stereo(
         x, sample_rate=sample_rate, n_fft=n_fft, hop_length=hop_length,
         f0_min=f0_min, f0_max=f0_max, steps_per_semitone=steps_per_semitone,
         n_harmonics=n_harmonics, n_filt_atoms=n_filt_atoms, n_filters=n_filters,
-        n_accomp=n_accomp, n_iter=n_iter_simm, generator=generator,
-        round1_init=round1_init, round2_init=round2_init, device=dev)
+        n_accomp=n_accomp, n_iter=n_iter_simm, key=k1, device=dev)
 
     X = host_stft_stack(x, n_fft, hop_length, fnc=True, device=dev)     # (F, N, C)
     X_fit = unit_power(X)
@@ -290,7 +290,7 @@ def separate_lead_multichannel(
         n_acc_components=k_per, n_em=n_em,
         HF0_init=m.HF0, FW_init=m.HGAMMA, TW_init=m.HPHI,
         W_init=W_seed, H_init=H_seed, R_init=stack_spatial(R_lead, R_acc, J_acc),
-        device=dev)
+        key=k2, device=dev)
 
     v = model_power(model, WUF0, WGAMMA)
     Y = _wiener_images_sf(X, v, model.R)                   # (J, F, N, C)

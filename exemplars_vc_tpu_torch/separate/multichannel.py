@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.separate.glue import (
     _outer,
@@ -171,17 +172,17 @@ def _wiener_images(X, W, H, R) -> torch.Tensor:
     return _wiener_images_v(X, W @ H, R)
 
 
-def random_spatial_init(generator: torch.Generator, n_sources: int, F: int, C: int,
+def random_spatial_init(key: torch.Tensor, n_sources: int, F: int, C: int,
                         mix: float = 0.2,
                         device: str | torch.device = "cuda") -> torch.Tensor:
     """Identity-plus-random-rank-1 spatial covariances (J, F, C, C).
 
-    The complex perturbation draws its real and imaginary parts apart (in
-    that order, from the CPU ``generator``), so sources start with distinct
-    inter-channel phase as well as gain."""
-    re = torch.randn((n_sources, C), generator=generator)
-    im = torch.randn((n_sources, C), generator=generator)
-    return _rank1_spatial(torch.complex(re, im), F, mix).to(resolve_device(device))
+    The complex perturbation draws its real and imaginary parts apart (from
+    the two halves of ``split(key)``, on the CPU), so sources start with
+    distinct inter-channel phase as well as gain."""
+    kr, ki = prng.split(key)
+    a = torch.complex(prng.normal(kr, (n_sources, C)), prng.normal(ki, (n_sources, C)))
+    return _rank1_spatial(a, F, mix).to(resolve_device(device))
 
 
 def _rank1_spatial(a: torch.Tensor, F: int, mix: float) -> torch.Tensor:
@@ -199,25 +200,26 @@ def _as_complex(X, dev: torch.device) -> torch.Tensor:
 
 
 def fit_multichannel_nmf(X, n_sources: int = 2, n_components: int = 4, n_em: int = 50,
-                         n_nmf_inner: int = 1, generator: torch.Generator | None = None,
+                         n_nmf_inner: int = 1, key: torch.Tensor | None = None,
                          W_init=None, H_init=None, R_init=None,
                          device: str | torch.device = "cuda") -> MultichannelNMF:
     """Fit the multichannel NMF local Gaussian model to a mixture STFT.
 
     X: (F, N, C) complex mixture STFT (freq-major). Inits not provided are
-    drawn from the CPU ``generator`` (seed 0 when None) in the order W, H,
-    R: squared normals for W/H (pyfasst's convention), R identity plus a
-    source-specific rank-1 perturbation (:func:`random_spatial_init`)."""
+    drawn from ``split(key, 3)`` (``key`` ``PRNGKey(0)`` when None), one
+    subkey each for W, H and R: squared normals for W/H (pyfasst's
+    convention), R identity plus a source-specific rank-1 perturbation
+    (:func:`random_spatial_init`)."""
     dev = resolve_device(device)
     X = _as_complex(X, dev)
     F, N, C = X.shape
     J, K = n_sources, n_components
-    gen = torch.Generator().manual_seed(0) if generator is None else generator
-    W = (torch.randn((J, F, K), generator=gen) ** 2 if W_init is None
+    kw, kh, kr = prng.split(prng.key_or_default(key), 3)
+    W = (prng.normal(kw, (J, F, K)) ** 2 if W_init is None
          else torch.as_tensor(W_init, dtype=torch.float32))
-    H = (torch.randn((J, K, N), generator=gen) ** 2 if H_init is None
+    H = (prng.normal(kh, (J, K, N)) ** 2 if H_init is None
          else torch.as_tensor(H_init, dtype=torch.float32))
-    R = (random_spatial_init(gen, J, F, C, device=dev) if R_init is None
+    R = (random_spatial_init(kr, J, F, C, device=dev) if R_init is None
          else _as_complex(R_init, dev))
     return _em_loop(X, W.to(dev, torch.float32), H.to(dev, torch.float32), R,
                     n_em, n_nmf_inner)
@@ -225,9 +227,8 @@ def fit_multichannel_nmf(X, n_sources: int = 2, n_components: int = 4, n_em: int
 
 def separate_signal(x, n_sources: int = 2, n_components: int = 4, n_em: int = 50,
                     n_fft: int = 400, hop_length: int = 80,
-                    generator: torch.Generator | None = None,
+                    key: torch.Tensor | None = None,
                     spectral_model: str = "nmf", spatial_init: str = "random",
-                    W_init=None, H_init=None, P_init=None, R_init=None,
                     device: str | torch.device = "cuda"):
     """Separate a multichannel signal x (C, T) into source images (J, C, T).
 
@@ -237,23 +238,19 @@ def separate_signal(x, n_sources: int = 2, n_components: int = 4, n_em: int = 50
 
     spectral_model: ``"nmf"`` or ``"hmm"`` / ``"shmm"`` (``n_components`` is
     then the number of HMM states). spatial_init: ``"random"`` or ``"demix"``
-    (DEMIX direction clustering seeds R; stereo only). Explicit inits
-    (``W_init``, ``H_init`` for NMF or ``P_init`` for the HMM state
-    indicators, ``R_init``) pass through to the fit; ``R_init`` replaces the
-    spatial init."""
+    (DEMIX direction clustering seeds R; stereo only)."""
     dev = resolve_device(device)
     x = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x))
     x = x.astype(np.float32)
     C, T = x.shape
     X = host_stft_stack(x, n_fft, hop_length, fnc=True, device=dev)   # (F, N, C)
 
+    R_init = None
     if spatial_init == "demix":
-        if R_init is None:
-            from exemplars_vc_tpu_torch.separate.demix import demix
+        from exemplars_vc_tpu_torch.separate.demix import demix
 
-            est = demix(x, n_sources=n_sources, n_fft=n_fft, hop_length=hop_length,
-                        device=dev)
-            R_init = est.spatial_init(np.arange(X.shape[0]) / n_fft, device=dev)
+        est = demix(x, n_sources=n_sources, n_fft=n_fft, hop_length=hop_length, device=dev)
+        R_init = est.spatial_init(np.arange(X.shape[0]) / n_fft, device=dev)
     elif spatial_init != "random":
         raise ValueError(f"unknown spatial_init {spatial_init!r}")
 
@@ -262,12 +259,11 @@ def separate_signal(x, n_sources: int = 2, n_components: int = 4, n_em: int = 50
 
         model = fit_multichannel_hmm(
             X, n_sources=n_sources, n_states=n_components, n_em=n_em,
-            sticky=spectral_model == "shmm", generator=generator,
-            W_init=W_init, P_init=P_init, R_init=R_init, device=dev)
+            sticky=spectral_model == "shmm", key=key, R_init=R_init, device=dev)
     elif spectral_model == "nmf":
         model = fit_multichannel_nmf(
             X, n_sources=n_sources, n_components=n_components, n_em=n_em,
-            generator=generator, W_init=W_init, H_init=H_init, R_init=R_init, device=dev)
+            key=key, R_init=R_init, device=dev)
     else:
         raise ValueError(f"unknown spectral_model {spectral_model!r}")
     Y = _wiener_images(X, model.W, model.H, model.R)    # (J, F, N, C)

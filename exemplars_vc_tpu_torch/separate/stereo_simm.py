@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.device import resolve_device
 
 _EPS = 1e-20  # SIMM.py:498 (eps = 10**-20)
@@ -192,19 +193,18 @@ def _stereo_simm_loop(SXR, SXL, WF0, WGAMMA, alpha, HGAMMA, HPHI, HF0, beta, HM,
     return model
 
 
-def simm_draws(generator: torch.Generator, F: int, N: int, NF0: int, P: int,
+def simm_draws(key: torch.Tensor, F: int, N: int, NF0: int, P: int,
                n_filters: int, n_accomp: int) -> dict:
-    """Every random init of one stereo SIMM fit, drawn from the CPU
-    ``generator`` in the order HGAMMA, HPHI, HF0, WM, HM (|standard
-    normal|) and βR (uniform, βL = 1 − βR) — ``SIMM.py:524-583``. Keys are
-    :func:`stereo_simm`'s ``*_init`` arguments."""
-    def absn(shape):
-        return torch.randn(shape, generator=generator).abs()
-
-    out = dict(HGAMMA_init=absn((P, n_filters)), HPHI_init=absn((n_filters, N)),
-               HF0_init=absn((NF0, N)), WM_init=absn((F, n_accomp)),
-               HM_init=absn((n_accomp, N)))
-    bR = torch.rand((n_accomp,), generator=generator)
+    """Every random init of one stereo SIMM fit, drawn on the CPU from
+    ``split(key, 6)`` as the JAX package draws them: HGAMMA, HPHI, HF0, WM,
+    HM (|standard normal|) from subkeys 0-4 and βR (uniform, βL = 1 − βR)
+    from subkey 5 — ``SIMM.py:524-583``. Keys are :func:`stereo_simm`'s
+    ``*_init`` arguments."""
+    ks = prng.split(key, 6)
+    shapes = dict(HGAMMA_init=(P, n_filters), HPHI_init=(n_filters, N), HF0_init=(NF0, N),
+                  WM_init=(F, n_accomp), HM_init=(n_accomp, N))
+    out = {name: prng.normal(k, shape).abs() for k, (name, shape) in zip(ks, shapes.items())}
+    bR = prng.uniform(ks[5], (n_accomp,))
     out["beta_init"] = torch.stack([bR, 1.0 - bR])
     return out
 
@@ -227,7 +227,7 @@ def stereo_simm(
     HM_init=None,
     beta_init=None,
     alpha_init=None,
-    generator: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
     return_diagnostics: bool = False,
     device: str | torch.device = "cuda",
 ) -> StereoSIMM:
@@ -235,8 +235,8 @@ def stereo_simm(
 
     SXR/SXL: (F, N) right/left power spectrograms. WF0: (F, NF0) fixed
     source dictionary. WGAMMA: (F, P) fixed smooth filter-atom bank. Inits
-    not provided are drawn from the CPU ``generator`` (seed 0 when None),
-    as :func:`simm_draws` does; α starts at (0.5, 0.5).
+    not provided are drawn from ``key`` (``PRNGKey(0)`` when None) as
+    :func:`simm_draws` does; α starts at (0.5, 0.5).
     ``return_diagnostics`` also returns a dict of per-iteration traces."""
     dev = resolve_device(device)
 
@@ -248,8 +248,8 @@ def stereo_simm(
     given = dict(HGAMMA_init=HGAMMA_init, HPHI_init=HPHI_init, HF0_init=HF0_init,
                  WM_init=WM_init, HM_init=HM_init, beta_init=beta_init)
     if any(v is None for v in given.values()):
-        gen = torch.Generator().manual_seed(0) if generator is None else generator
-        draws = simm_draws(gen, F, N, WF0.shape[1], WGAMMA.shape[1], n_filters, n_accomp)
+        draws = simm_draws(prng.key_or_default(key), F, N, WF0.shape[1],
+                           WGAMMA.shape[1], n_filters, n_accomp)
         given = {k: draws[k] if v is None else v for k, v in given.items()}
     alpha = f32([0.5, 0.5] if alpha_init is None else alpha_init)
     return _stereo_simm_loop(
@@ -288,9 +288,7 @@ def separate_lead_stereo(
     melody_halfwidth_semitones: float = 0.5,
     transition_scale: float = 10.0,
     voicing_threshold: float = 0.05,
-    generator: torch.Generator | None = None,
-    round1_init: dict | None = None,
-    round2_init: dict | None = None,
+    key: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
 ) -> StereoLeadSeparation:
     """Two-round stereo VUIMM lead separation (``SeparateLeadStereoTF.py``).
@@ -304,12 +302,11 @@ def separate_lead_stereo(
     round 1's estimate, HPHI/WM/HM fresh. Per-channel Wiener masks resynthesize
     the stereo lead and accompaniment images.
 
-    Random inits: each round draws one set (:func:`simm_draws`) from the CPU
-    ``generator`` (seed 0 when None), round 1's first; every fit of a round
-    takes that set's draws where it does not carry a fitted factor, as the
-    JAX package's fits of a round share one key. ``round1_init`` and
-    ``round2_init`` (dicts keyed as :func:`stereo_simm`'s ``*_init``
-    arguments) replace draws of their round.
+    Random inits: round 1 draws one set (:func:`simm_draws`) from the first
+    half of ``split(key)`` and round 2 from the second (``key``
+    ``PRNGKey(0)`` when None); every fit of a round takes that set's draws
+    where it does not carry a fitted factor, as the JAX package's fits of a
+    round share one key.
     """
     from exemplars_vc_tpu_torch.separate.glue import (
         host_stereo_powers, host_stft_stack, masked_istft)
@@ -333,9 +330,8 @@ def separate_lead_stereo(
     WF0 = torch.as_tensor(harmonic_dictionary(grid, n_fft, sample_rate, n_harmonics),
                           device=dev)
     WGAMMA = torch.as_tensor(hann_filter_basis(F, n_filt_atoms), device=dev)
-    gen = torch.Generator().manual_seed(0) if generator is None else generator
-    r1, r2 = ({**simm_draws(gen, F, N, n_steps, n_filt_atoms, n_filters, n_accomp),
-               **(given or {})} for given in (round1_init, round2_init))
+    r1, r2 = (simm_draws(k, F, N, n_steps, n_filt_atoms, n_filters, n_accomp)
+              for k in prng.split(prng.key_or_default(key)))
     kw = dict(n_filters=n_filters, n_accomp=n_accomp, device=dev)
 
     # ---- round 1: voiced-only SIMM, all parameters free ------------------

@@ -10,10 +10,12 @@
 - periodic part Σ_k a_k[t]·cos(k·φ[t] + θ_k[t]);
 - noise part: white noise, STFT-shaped by √sp·ap, inverted by the ISTFT.
 
-The reference draws its noise with ``jax.random.normal(PRNGKey(0))``, which
-torch cannot reproduce: the noise comes from ``generator`` (a generator
-seeded with 0 on the signals' device by default, so a conversion repeats),
-or is passed in whole as ``noise``. Constants are combined as XLA compiles
+The noise is the reference's own: ``normal(key, (n,))`` of the port's
+counterpart of ``jax.random`` (``prng``; ``key`` ``PRNGKey(0)`` when None),
+drawn on the CPU and moved to the signals' device. The default key's draw
+is kept on each device and sliced: element i of a draw depends only on the
+key and i, so a draw of n samples is the first n of any longer draw.
+Constants are combined as XLA compiles
 the reference: a division by a constant is a product with its float32
 reciprocal, and 2π/sr is one float32 product. The phase accumulates over
 ~50k samples and k·φ reaches 10⁵ rad, so its last bits show in the audio.
@@ -26,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.dsp.stft import istft, stft
 from exemplars_vc_tpu_torch.world._ops import cumsum, gather_last
 
@@ -40,6 +43,21 @@ def _two_pi_over(sr: int) -> float:
     return float(np.float32(2.0 * math.pi) * np.float32(_recip(sr)))
 
 
+_NOISE_CACHE_MAX = 1 << 22                  # samples (16 MB, 4.4 min at 16 kHz)
+_DEFAULT_NOISE: dict[torch.device, torch.Tensor] = {}
+
+
+def _default_noise(n: int, dev: torch.device) -> torch.Tensor:
+    """``normal(PRNGKey(0), (n,))`` on ``dev``, from the longest such draw
+    made on ``dev`` so far (redrawn when a longer one is asked for)."""
+    if n > _NOISE_CACHE_MAX:
+        return prng.normal(prng.PRNGKey(0), (n,)).to(dev)
+    have = _DEFAULT_NOISE.get(dev)
+    if have is None or len(have) < n:
+        have = _DEFAULT_NOISE[dev] = prng.normal(prng.PRNGKey(0), (n,)).to(dev)
+    return have[:n]
+
+
 def _upsample_frames(values: torch.Tensor, hop: int, n_samples: int) -> torch.Tensor:
     """(F, ...) frame values → (T, ...) a sample, by linear interpolation."""
     Fr = values.shape[0]
@@ -52,10 +70,8 @@ def _upsample_frames(values: torch.Tensor, hop: int, n_samples: int) -> torch.Te
 
 def synthesize(f0: torch.Tensor, sp: torch.Tensor, ap: torch.Tensor, sr: int = 16000,
                frame_period_ms: float = 5.0, fft_size: int = 1024, max_harmonics: int = 96,
-               generator: torch.Generator | None = None,
-               noise: torch.Tensor | None = None) -> torch.Tensor:
-    """f0 (F,), sp (F, B), ap (F, B) → waveform ((F − 1)·hop,). ``noise``
-    ((F − 1)·hop,) replaces the drawn white noise."""
+               key: torch.Tensor | None = None) -> torch.Tensor:
+    """f0 (F,), sp (F, B), ap (F, B) → waveform ((F − 1)·hop,)."""
     hop = int(round(sr * frame_period_ms / 1000.0))
     Fr, B = sp.shape
     n_samples = (Fr - 1) * hop
@@ -97,12 +113,9 @@ def synthesize(f0: torch.Tensor, sp: torch.Tensor, ap: torch.Tensor, sr: int = 1
     y_per = torch.sum(amp_t * torch.cos(phase[:, None] * k + theta_t), dim=-1) * voiced_t
 
     # aperiodic component
-    if noise is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        noise = torch.randn(n_samples, generator=generator, device=dev, dtype=sp.dtype)
-    N = stft(noise.to(device=dev, dtype=sp.dtype), n_fft=fft_size, hop_length=hop,
-             window="hann")
+    noise = (_default_noise(n_samples, dev) if key is None
+             else prng.normal(key, (n_samples,)).to(dev))
+    N = stft(noise.to(sp.dtype), n_fft=fft_size, hop_length=hop, window="hann")
     Fn = min(N.shape[0], Fr)
     shape = torch.sqrt(torch.clamp(sp[:Fn], min=0.0)) * ap[:Fn]
     y_ap = istft(N[:Fn] * shape, n_fft=fft_size, hop_length=hop, window="hann",

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.align import dtw_cuda
 from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
 from exemplars_vc_tpu_torch.dsp import griffin_lim_cuda
@@ -546,8 +547,8 @@ def test_griffin_lim_graph_equals_eager(cuda, seeded):
     def run(m, graph):
         if seeded:
             return griffin_lim(m, n_iter=n_iter, init_phase=S, return_phase=True, _graph=graph)
-        gen = torch.Generator(device=cuda).manual_seed(3)
-        return griffin_lim(m, n_iter=n_iter, generator=gen, return_phase=True, _graph=graph)
+        return griffin_lim(m, n_iter=n_iter, key=prng.PRNGKey(3), return_phase=True,
+                           _graph=graph)
 
     before = griffin_lim.captures
     y_g, a_g = run(mag, True)

@@ -2,7 +2,7 @@
 lead.py``) on the CPU: counterparts of ``tests/test_separate_ext.py::
 TestLeadSeparation`` and ``tests/test_separation_platform_parity.py::
 TestOperatingPoint``, and the same inputs through the JAX package and the
-port (the port given the JAX package's draws of its key).
+port, from the same key.
 
 Tolerances: after 6 iterations a pass, the audio within 1e-4 of the
 mixture's peak and HF0 within 5e-3 relative of the JAX package's, the
@@ -23,6 +23,7 @@ from exemplars_vc_tpu.separate import separate_lead_stereo as jax_separate_lead_
 from exemplars_vc_tpu_torch.io.standin import synthetic_mixture
 from exemplars_vc_tpu_torch.separate import separate_lead, separate_lead_stereo
 from test_separate_ext import TestLeadSeparation as JaxLeadCases
+from test_torch_separate import key_kw
 
 CPU = "cpu"
 
@@ -30,20 +31,6 @@ CPU = "cpu"
 def rel(a, b) -> float:
     a, b = np.asarray(a), np.asarray(b)
     return float(np.abs(a - b).max() / np.abs(b).max())
-
-
-def jax_sf_draws(key, n_steps, n_filt, n_accomp, F, N) -> dict:
-    """The inits JAX ``separate_lead(..., key=key)``'s passes draw (every
-    pass's ``sf_nmf`` takes the same key), keyed as the port's arguments."""
-    ks = jax.random.split(key, 6)
-
-    def normal(k, shape):
-        return np.array(jax.random.normal(k, shape))
-
-    return dict(H_init=normal(ks[1], (n_steps, N)) ** 2,
-                H_filt_init=normal(ks[3], (n_filt, N)) ** 2,
-                W_res_init=(1.0 + normal(ks[4], (F, n_accomp))) ** 2,
-                H_res_init=(1.0 + normal(ks[5], (n_accomp, N))) ** 2)
 
 
 def _snr(sig, ref):
@@ -88,16 +75,15 @@ class TestLeadSeparation:
 @pytest.mark.parametrize("mono,n_warmup", [(True, 10), (False, 0)])
 def test_separate_lead_matches_jax(mono, n_warmup):
     """The mono pipeline on the benchmark mixture (its channel mean, or both
-    channels masked alike) from the JAX draws: warm-up, pass 1, melody,
-    pass 2, Wiener mask."""
+    channels masked alike), both packages from ``PRNGKey(3)``: warm-up,
+    pass 1, melody, pass 2, Wiener mask."""
     x = synthetic_mixture()
     x = x.mean(axis=0) if mono else x
-    key = jax.random.PRNGKey(3)
+    jk, tk = key_kw(3)
     kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0,
               f0_max=800.0, n_accomp=20, n_iter=6, n_warmup=n_warmup)
-    ref = jax_separate_lead(jnp.asarray(x), key=key, **kw)
-    P, N = ref.HF0.shape
-    got = separate_lead(x, device=CPU, **jax_sf_draws(key, P, 20, 20, 513, N), **kw)
+    ref = jax_separate_lead(jnp.asarray(x), **jk, **kw)
+    got = separate_lead(x, device=CPU, **tk, **kw)
     assert np.array_equal(got.f0_candidates, ref.f0_candidates)
     assert np.mean(got.f0 == ref.f0) >= 0.99
     assert rel(got.HF0.numpy(), ref.HF0) < 5e-3
@@ -105,6 +91,24 @@ def test_separate_lead_matches_jax(mono, n_warmup):
         want, g = np.asarray(getattr(ref, part)), getattr(got, part)
         assert tuple(g.shape) == want.shape and g.dtype == torch.float32, part
         assert np.abs(g.numpy() - want).max() < 1e-4 * np.abs(x).max(), part
+
+
+@pytest.mark.parametrize("seed", [None, 7])
+def test_separate_lead_from_a_key_matches_jax(seed):
+    """No inits: every pass draws from the key (default ``PRNGKey(0)`` when
+    None) in both packages; the tolerances of
+    ``test_separate_lead_matches_jax``."""
+    x = synthetic_mixture().mean(axis=0)
+    kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0,
+              f0_max=800.0, n_accomp=20, n_iter=6)
+    jk, tk = key_kw(seed)
+    ref = jax_separate_lead(jnp.asarray(x), **kw, **jk)
+    got = separate_lead(x, device=CPU, **kw, **tk)
+    assert np.mean(got.f0 == ref.f0) >= 0.99
+    assert rel(got.HF0.numpy(), ref.HF0) < 5e-3
+    for part in ("lead", "accomp"):
+        g, want = getattr(got, part).numpy(), np.asarray(getattr(ref, part))
+        assert np.abs(g - want).max() < 1e-4 * np.abs(x).max(), part
 
 
 def _operating_point(res, lead_img):
@@ -119,24 +123,21 @@ def _operating_point(res, lead_img):
 def test_lead_energy_share_pinned():
     """Counterpart of ``TestOperatingPoint``: the benchmark scenario's
     converged split (0.6757 in the JAX package on both platforms, true
-    share 0.647), the port started from the JAX package's draws of the
-    test's key (the copy in ``io/data`` that a run without JAX, on the
-    card, takes).
+    share 0.647), the port started from its own draws of the test's key,
+    which are the JAX package's.
 
     The split depends on the random start in both packages
     (``tools/simm_seed_sweep.py``): from ``PRNGKey(0..31)`` the JAX package
     converges to shares 0.22-0.72 (median 0.586, 16 of 32 within 0.05 of
-    0.6757), the port from generator seeds 0-31 to 0.17-0.73 (median 0.554,
-    12 of 32), the median f0 218.1 Hz in every run; so the pin holds for
-    these draws, not for any seed."""
-    from exemplars_vc_tpu_torch.io.standin import jax_simm_draws
+    0.6757), the median f0 218.1 Hz in every run; so the pin holds for this
+    key, not for any seed."""
+    from exemplars_vc_tpu_torch import prng
 
     x, lead_img, _ = synthetic_mixture(return_components=True)
     kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0, f0_max=800.0,
               n_accomp=20, n_iter=15)
     ref = jax_separate_lead_stereo(jnp.asarray(x), key=jax.random.PRNGKey(1), **kw)
-    r1, r2 = jax_simm_draws()
-    res = separate_lead_stereo(x, round1_init=r1, round2_init=r2, device=CPU, **kw)
+    res = separate_lead_stereo(x, key=prng.PRNGKey(1), device=CPU, **kw)
     share, f0, sdr = _operating_point(res, lead_img)
     assert abs(share - 0.676) < 0.05, share
     assert len(f0) > 50 and abs(np.median(f0) - 220.0) < 10.0

@@ -49,7 +49,7 @@ from exemplars_vc_tpu_torch.separate.lead_multichannel import (
     model_power,
 )
 from test_stereo_simm import _stereo_melody_mixture
-from test_torch_stereo_simm import jax_round_draws
+from test_torch_separate import key_kw
 
 CPU = "cpu"
 FIELDS = ("HF0", "FW", "TW", "W", "H", "R")
@@ -180,6 +180,23 @@ def test_em_sf_loop_matches_jax(n_inner, J_acc):
     assert np.abs(got.neg_log_like.numpy() - nll).max() / np.abs(nll).max() < 1e-5
 
 
+@pytest.mark.parametrize("seed", [None, 7])
+def test_fit_multichannel_sf_from_a_key_matches_jax(seed):
+    """No inits: the factors (0.75·|randn| + 0.25) and R from the six-way
+    split of the key in both packages; the tolerances of
+    ``test_em_sf_loop_matches_jax``."""
+    X, WF0, WGAMMA, _ = _em_inputs(2)
+    jk, tk = key_kw(seed)
+    kw = dict(n_filters=3, n_acc_components=4, n_em=6)
+    ref = jax_fit_multichannel_sf(jnp.asarray(X), jnp.asarray(WF0), jnp.asarray(WGAMMA),
+                                  **kw, **jk)
+    got = fit_multichannel_sf(X, WF0, WGAMMA, device=CPU, **kw, **tk)
+    for name in FIELDS:
+        assert rel(getattr(got, name).numpy(), getattr(ref, name)) < 5e-3, name
+    nll = np.asarray(ref.neg_log_like)
+    assert np.abs(got.neg_log_like.numpy() - nll).max() / np.abs(nll).max() < 1e-5
+
+
 def test_fit_from_the_pipeline_seeds_is_ill_conditioned_in_both_packages():
     """The composed fit as ``separate_lead_multichannel`` seeds it (the
     stereo SIMM's factors, DEMIX covariances of the separated images, the
@@ -219,21 +236,38 @@ def test_fit_from_the_pipeline_seeds_is_ill_conditioned_in_both_packages():
 
 @pytest.mark.parametrize("spatial_init", ["demix", "empirical"])
 def test_separate_lead_multichannel_matches_jax(spatial_init):
-    """The slice's composed pipeline from the JAX draws: stereo SIMM →
-    spatial estimates of the separated images → composed EM → Wiener
-    images, 6 SIMM iterations a round and 6 EM."""
+    """The slice's composed pipeline, both packages from ``PRNGKey(2)``:
+    stereo SIMM → spatial estimates of the separated images → composed EM
+    → Wiener images, 6 SIMM iterations a round and 6 EM."""
     x = synthetic_mixture()
-    key = jax.random.PRNGKey(2)
+    jk, tk = key_kw(2)
     kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0, f0_max=800.0,
               n_accomp=20, n_iter_simm=6, n_em=6, spatial_init=spatial_init)
-    ref = jax_separate_lmc(jnp.asarray(x), key=key, **kw)
-    k_simm = jax.random.split(key)[0]
-    r1, r2 = jax_round_draws(k_simm, x, 1024, 256, f0_grid(100.0, 800.0, 4), 20, 4, 20)
-    got = separate_lead_multichannel(x, round1_init=r1, round2_init=r2, device=CPU, **kw)
+    ref = jax_separate_lmc(jnp.asarray(x), **jk, **kw)
+    got = separate_lead_multichannel(x, device=CPU, **tk, **kw)
     assert np.mean(got.f0 == ref.f0) >= 0.99
     for part in ("lead", "accomp"):
         want = np.asarray(getattr(ref, part))
         assert tuple(getattr(got, part).shape) == want.shape
+        assert np.abs(getattr(got, part).numpy() - want).max() < 1e-2 * np.abs(x).max(), part
+    nll = np.asarray(ref.model.neg_log_like)
+    assert np.abs(got.model.neg_log_like.numpy() - nll).max() / np.abs(nll).max() < 1e-3
+
+
+@pytest.mark.parametrize("seed", [None, 7])
+def test_separate_lead_multichannel_from_a_key_matches_jax(seed):
+    """The composed pipeline with no inits: the stereo SIMM draws from the
+    first half of ``split(key)`` in both packages; the tolerances of
+    ``test_separate_lead_multichannel_matches_jax``."""
+    x = synthetic_mixture()
+    jk, tk = key_kw(seed)
+    kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0, f0_max=800.0,
+              n_accomp=20, n_iter_simm=6, n_em=6)
+    ref = jax_separate_lmc(jnp.asarray(x), **kw, **jk)
+    got = separate_lead_multichannel(x, device=CPU, **kw, **tk)
+    assert np.mean(got.f0 == ref.f0) >= 0.99
+    for part in ("lead", "accomp"):
+        want = np.asarray(getattr(ref, part))
         assert np.abs(getattr(got, part).numpy() - want).max() < 1e-2 * np.abs(x).max(), part
     nll = np.asarray(ref.model.neg_log_like)
     assert np.abs(got.model.neg_log_like.numpy() - nll).max() / np.abs(nll).max() < 1e-3

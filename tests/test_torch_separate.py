@@ -2,9 +2,13 @@
 {isnmf,multichannel}.py``) on the CPU: counterparts of ``tests/test_separate.py``
 and the same numpy inputs through the JAX package and the port.
 
-The port cannot reproduce ``jax.random``, so where the JAX function draws
-its inits from a key, the test draws them through the JAX package (the same
-splits) and hands them to the port as numpy arrays.
+The port draws its inits from the JAX package's keys (``prng``, the
+counterpart of ``jax.random``): the ``*_from_a_key_matches_jax`` tests run
+each function without inits, from the default key and from one other key,
+against the JAX function. Its normals are within 3 ulp of JAX's (1 % of
+them not bit-equal), which the fits carry at roundoff. The other parity
+tests run both packages from one key, or hand the fits that take explicit
+inits (as the JAX ones do) inits drawn through the JAX package.
 
 Tolerances. One E-step agrees to 1e-5 relative (float32 complex einsums
 summed in another order). The EM amplifies that roundoff with every
@@ -23,6 +27,7 @@ import torch_corpus  # noqa: F401  (caps torch's threads)
 from exemplars_vc_tpu.separate import isnmf as jisnmf
 from exemplars_vc_tpu.separate import multichannel as jmc
 from exemplars_vc_tpu.separate.glue import host_stft_stack as jax_host_stft_stack
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.dsp.stft import stft
 from exemplars_vc_tpu_torch.separate import (
     fit_multichannel_nmf,
@@ -44,8 +49,20 @@ def rel(a, b) -> float:
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-def gen(seed: int) -> torch.Generator:
-    return torch.Generator().manual_seed(seed)
+def key(seed: int) -> torch.Tensor:
+    return prng.PRNGKey(seed)
+
+
+def key_kw(seed: int | None) -> tuple[dict, dict]:
+    """The ``key=`` arguments of the JAX function and of the port for
+    ``seed``; None gives neither, so that both take their default key."""
+    if seed is None:
+        return {}, {}
+    return {"key": jax.random.PRNGKey(seed)}, {"key": prng.PRNGKey(seed)}
+
+
+# the default key (PRNGKey(0) in both packages) and one other
+KEY_SEEDS = [None, 7]
 
 
 def t(a) -> torch.Tensor:
@@ -70,7 +87,7 @@ def test_is_nmf_monotone_divergence():
     SX = low_rank_power(np.random.default_rng(1))
     prev = None
     for it in (2, 8, 30):
-        W, H = is_nmf(SX, n_components=4, n_iter=it, generator=gen(3), device=CPU)
+        W, H = is_nmf(SX, n_components=4, n_iter=it, key=key(3), device=CPU)
         d = float(is_divergence(torch.from_numpy(SX), W @ H))
         if prev is not None:
             assert d <= prev * (1 + 1e-5)
@@ -94,7 +111,7 @@ def test_is_nmf_fixed_W_stays_fixed():
 
 def test_is_nmf_W_columns_normalized():
     SX = low_rank_power(np.random.default_rng(3))
-    W, _ = is_nmf(SX, n_components=4, n_iter=5, generator=gen(1), device=CPU)
+    W, _ = is_nmf(SX, n_components=4, n_iter=5, key=key(1), device=CPU)
     np.testing.assert_allclose(W.numpy().sum(axis=0), 1.0, rtol=1e-4)
 
 
@@ -114,7 +131,7 @@ def test_sf_nmf_fits_source_filter_structure():
     SX = _source_filter_target(np.random.default_rng(4))
     F, N = SX.shape
     W, H, WF, HF, WR, HR = sf_nmf(SX, n_components=2, n_filt_components=2,
-                                  n_res_components=1, n_iter=60, generator=gen(0), device=CPU)
+                                  n_res_components=1, n_iter=60, key=key(0), device=CPU)
     assert W.shape == (F, 2) and H.shape == (2, N)
     assert WF.shape == (F, 2) and HF.shape == (2, N)
     hat = (W @ H) * (WF @ HF) + WR @ HR
@@ -131,7 +148,7 @@ def _stft_fnc(x: np.ndarray, n_fft: int, hop: int) -> torch.Tensor:
 def test_multichannel_nll_monotone():
     _, _, mix = _two_source_stereo(None)
     model = fit_multichannel_nmf(_stft_fnc(mix, 128, 64), n_sources=2, n_components=2,
-                                 n_em=12, generator=gen(0), device=CPU)
+                                 n_em=12, key=key(0), device=CPU)
     nll = model.neg_log_like.numpy()
     # EM on the local Gaussian model: NLL non-increasing (small slack for f32)
     assert nll[-1] < nll[0]
@@ -144,14 +161,12 @@ def _sdr(ref, est) -> float:
 
 
 def test_multichannel_separation_recovers_panned_sources():
-    """The JAX test's operating point: its key's inits. The EM's end point
-    depends on the init on this mixture (some keys of the JAX package and
-    some generator seeds of the port stay under the 5 dB margin), so the
-    port starts where the JAX test starts."""
+    """The JAX test's operating point: its key, ``PRNGKey(1)``. The EM's end
+    point depends on the init on this mixture (some keys stay under the 5 dB
+    margin), so the port starts where the JAX test starts."""
     img1, img2, mix = _two_source_stereo(None)
-    W, H, R = jax_nmf_inits(jax.random.PRNGKey(1), mix, 2, 2, 128, 32)
     images, _ = separate_signal(mix, n_sources=2, n_components=2, n_em=40, n_fft=128,
-                                hop_length=32, W_init=W, H_init=H, R_init=R, device=CPU)
+                                hop_length=32, key=key(1), device=CPU)
     images = images.numpy()
     assert images.shape == (2, 2, mix.shape[1])
     # near-conservativity: Wiener images sum back to the mixture up to the
@@ -170,7 +185,7 @@ def test_multichannel_three_channels_general_inverse():
     mix = (np.array([1.0, 0.5, 0.1], np.float32)[:, None] * s1
            + np.array([0.1, 0.5, 1.0], np.float32)[:, None] * s2)
     images, _ = separate_signal(mix, n_sources=2, n_components=1, n_em=10, n_fft=128,
-                                hop_length=64, generator=gen(2), device=CPU)
+                                hop_length=64, key=key(2), device=CPU)
     assert images.shape == (2, 3, 3000)
     assert torch.isfinite(images).all()
 
@@ -283,6 +298,52 @@ def test_sf_nmf_matches_jax():
             assert rel(g.numpy(), r) < 1e-4, kw
 
 
+@pytest.mark.parametrize("seed", KEY_SEEDS)
+def test_is_nmf_from_a_key_matches_jax(seed):
+    """No inits: W and H come from the key in both packages (the tolerance
+    of ``test_is_nmf_matches_jax``)."""
+    SX = low_rank_power(np.random.default_rng(8))
+    jk, tk = key_kw(seed)
+    ref = jisnmf.is_nmf(SX, n_components=5, n_iter=6, **jk)
+    got = is_nmf(SX, n_components=5, n_iter=6, device=CPU, **tk)
+    for g, r in zip(got, ref):
+        assert rel(g.numpy(), r) < 1e-4
+
+
+@pytest.mark.parametrize("seed", KEY_SEEDS)
+def test_sf_nmf_from_a_key_matches_jax(seed):
+    """No inits: the six factors come from the six-way split of the key."""
+    SX = _source_filter_target(np.random.default_rng(9))
+    jk, tk = key_kw(seed)
+    kw = dict(n_components=2, n_filt_components=2, n_res_components=1, n_iter=6)
+    ref = jisnmf.sf_nmf(SX, **kw, **jk)
+    got = sf_nmf(SX, **kw, device=CPU, **tk)
+    for g, r in zip(got, ref):
+        assert rel(g.numpy(), r) < 1e-4
+
+
+@pytest.mark.parametrize("seed", KEY_SEEDS)
+def test_random_spatial_init_from_a_key_matches_jax(seed):
+    k = 0 if seed is None else seed
+    ref = np.asarray(jmc.random_spatial_init(jax.random.PRNGKey(k), 3, 5, 2))
+    got = tmc.random_spatial_init(prng.PRNGKey(k), 3, 5, 2, device=CPU).numpy()
+    assert rel(got, ref) < 1e-6
+
+
+@pytest.mark.parametrize("seed", KEY_SEEDS)
+def test_fit_multichannel_nmf_from_a_key_matches_jax(seed):
+    """No inits: W, H and R from the three-way split of the key, 5 EM
+    iterations (the tolerances of ``test_em_loop_matches_jax``)."""
+    X = _em_inputs(np.random.default_rng(6))[0]
+    jk, tk = key_kw(seed)
+    ref = jmc.fit_multichannel_nmf(jnp.asarray(X), n_sources=2, n_components=3, n_em=5, **jk)
+    got = fit_multichannel_nmf(X, n_sources=2, n_components=3, n_em=5, device=CPU, **tk)
+    for name in ("W", "H", "R"):
+        assert rel(getattr(got, name).numpy(), getattr(ref, name)) < 1e-4, name
+    nll_r = np.asarray(ref.neg_log_like)
+    assert np.abs(got.neg_log_like.numpy() - nll_r).max() / np.abs(nll_r).max() < 1e-5
+
+
 def jax_nmf_inits(key, x, n_sources, n_components, n_fft, hop, draw_R=True):
     """The W, H (and R) that JAX ``separate_signal(x, key=key)`` draws."""
     X = jax_host_stft_stack(x, n_fft, hop)
@@ -297,7 +358,7 @@ def jax_nmf_inits(key, x, n_sources, n_components, n_fft, hop, draw_R=True):
 @pytest.mark.parametrize("spatial_init,tol", [("random", 1e-4), ("demix", 1e-3)])
 def test_separate_signal_matches_jax(spatial_init, tol):
     """The slice as a whole: host STFT → (DEMIX) → EM → Wiener images →
-    ISTFT, the port given the inits the JAX function draws for its key.
+    ISTFT, both packages from ``PRNGKey(11)``.
 
     From the DEMIX init the fit is worse conditioned: R_j(f) starts rank-1
     plus 5 % diffuse, the 1e-5 ridge leaves R⁻¹ a condition number up to
@@ -306,18 +367,32 @@ def test_separate_signal_matches_jax(spatial_init, tol):
     NLL 1e-4), against 1e-4 (the NLL 1e-5) from the random init."""
     img1, img2, mix = _two_source_stereo(None)
     kw = dict(n_sources=2, n_components=2, n_em=6, n_fft=128, hop_length=32)
-    key = jax.random.PRNGKey(11)
-    ref_img, ref = jmc.separate_signal(jnp.asarray(mix), key=key, spatial_init=spatial_init,
-                                       **kw)
-    W, H, R = jax_nmf_inits(key, mix, 2, 2, 128, 32, draw_R=spatial_init == "random")
-    img, got = separate_signal(mix, W_init=W, H_init=H, R_init=R,
-                               spatial_init=spatial_init, device=CPU, **kw)
+    jk, tk = key_kw(11)
+    ref_img, ref = jmc.separate_signal(jnp.asarray(mix), spatial_init=spatial_init, **jk, **kw)
+    img, got = separate_signal(mix, spatial_init=spatial_init, device=CPU, **tk, **kw)
     assert img.shape == (2, 2, mix.shape[1])
     assert rel(img.numpy(), ref_img) < tol
     for name in ("W", "H", "R"):
         assert rel(getattr(got, name).numpy(), getattr(ref, name)) < tol, name
     nll_r = np.asarray(ref.neg_log_like)
     np.testing.assert_allclose(got.neg_log_like.numpy(), nll_r, rtol=tol / 10)
+
+
+@pytest.mark.parametrize("seed", KEY_SEEDS)
+def test_separate_signal_from_a_key_matches_jax(seed):
+    """The slice as a whole with no inits: the port draws what the JAX
+    function draws for the key (the tolerance of the random-init case of
+    ``test_separate_signal_matches_jax``)."""
+    mix = _two_source_stereo(None)[2]
+    kw = dict(n_sources=2, n_components=2, n_em=6, n_fft=128, hop_length=32)
+    jk, tk = key_kw(seed)
+    ref_img, ref = jmc.separate_signal(jnp.asarray(mix), **kw, **jk)
+    img, got = separate_signal(mix, device=CPU, **kw, **tk)
+    assert rel(img.numpy(), ref_img) < 1e-4
+    for name in ("W", "H", "R"):
+        assert rel(getattr(got, name).numpy(), getattr(ref, name)) < 1e-4, name
+    np.testing.assert_allclose(got.neg_log_like.numpy(), np.asarray(ref.neg_log_like),
+                               rtol=1e-5)
 
 
 def test_separate_signal_refuses_unknown_models():
@@ -330,8 +405,8 @@ def test_separate_signal_refuses_unknown_models():
 
 def test_same_generator_seed_same_fit():
     mix = _two_source_stereo(None)[2][:, :3000]
-    a = separate_signal(mix, n_em=3, n_fft=128, hop_length=32, generator=gen(4), device=CPU)
-    b = separate_signal(mix, n_em=3, n_fft=128, hop_length=32, generator=gen(4), device=CPU)
+    a = separate_signal(mix, n_em=3, n_fft=128, hop_length=32, key=key(4), device=CPU)
+    b = separate_signal(mix, n_em=3, n_fft=128, hop_length=32, key=key(4), device=CPU)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1].neg_log_like, b[1].neg_log_like)
 
 
@@ -350,6 +425,6 @@ def test_entry_point_defaults_to_the_card(name):
             "sf_nmf": (np.ones((4, 5), np.float32),),
             "fit_multichannel_nmf": (np.ones((4, 5, 2), np.complex64),),
             "separate_signal": (np.zeros((2, 800), np.float32),),
-            "random_spatial_init": (gen(0), 2, 4, 2)}[name]
+            "random_spatial_init": (key(0), 2, 4, 2)}[name]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         fn(*args)

@@ -40,6 +40,7 @@ from exemplars_vc_tpu_torch.separate import hmm as thmm
 from exemplars_vc_tpu_torch.separate.demix import _tf_features
 from test_separate_ext import TestHMMSpectra as _JaxHMM
 from test_separate_ext import _stereo_pan_mixture
+from test_torch_separate import key_kw
 
 CPU = "cpu"
 
@@ -235,6 +236,27 @@ def test_em_loop_hmm_matches_jax(sticky):
     np.testing.assert_allclose(got[4].numpy(), np.asarray(ref[4]), rtol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [None, 7])
+@pytest.mark.parametrize("sticky", [False, True])
+def test_fit_multichannel_hmm_from_a_key_matches_jax(sticky, seed):
+    """No inits: W, R and the random paths come from the three-way split of
+    the key in both packages (the JAX function's ``randint`` paths and its
+    one-key complex draw too), default key (None) or another; 5 EM
+    iterations, the tolerances of ``test_em_loop_hmm_matches_jax``."""
+    x = _stereo_pan_mixture(np.array([0.2, 1.3]), T=4000, seed=7, disjoint=False)
+    X = np.array(jax_host_stft_stack(x, 256, 64))
+    jk, tk = key_kw(seed)
+    ref = jhmm.fit_multichannel_hmm(jnp.asarray(X), n_sources=2, n_states=3, n_em=5,
+                                    sticky=sticky, **jk)
+    got = fit_multichannel_hmm(X, n_sources=2, n_states=3, n_em=5, sticky=sticky,
+                               device=CPU, **tk)
+    np.testing.assert_array_equal(got.H.numpy(), np.asarray(ref.H))     # state paths
+    for name in ("W", "R"):
+        assert rel(getattr(got, name).numpy(), getattr(ref, name)) < 1e-4, name
+    np.testing.assert_allclose(got.neg_log_like.numpy(), np.asarray(ref.neg_log_like),
+                               rtol=1e-5)
+
+
 def test_hmm_paths_match_jax_on_the_benchmark_mixture():
     """At the separation benchmark's settings (2 s mixture, n_fft 400, 8
     states) the JAX package and the port keep equal state paths for 10 EM
@@ -282,14 +304,13 @@ def test_hmm_fit_on_the_benchmark_mixture_parts_from_jax_in_paths_only(sticky):
 
 
 def test_separate_signal_hmm_matches_jax():
-    """The HMM slice as a whole, the port given the JAX function's inits."""
+    """The HMM slice as a whole, both packages from ``PRNGKey(4)``."""
     x = _stereo_pan_mixture(np.array([0.25, 1.2]), T=3000, seed=8, disjoint=False)
     kw = dict(n_sources=2, n_components=3, n_em=5, n_fft=256, hop_length=64,
               spectral_model="hmm")
-    key = jax.random.PRNGKey(4)
-    ref_img, ref = jmc.separate_signal(jnp.asarray(x), key=key, **kw)
-    W0, P0, R0 = jax_hmm_inits(key, np.array(jax_host_stft_stack(x, 256, 64)), 2, 3)
-    img, got = separate_signal(x, W_init=W0, P_init=P0, R_init=R0, device=CPU, **kw)
+    jk, tk = key_kw(4)
+    ref_img, ref = jmc.separate_signal(jnp.asarray(x), **jk, **kw)
+    img, got = separate_signal(x, device=CPU, **tk, **kw)
     np.testing.assert_array_equal(got.H.numpy(), np.asarray(ref.H))
     assert rel(img.numpy(), ref_img) < 1e-4
     np.testing.assert_allclose(got.neg_log_like.numpy(), np.asarray(ref.neg_log_like),

@@ -8,7 +8,7 @@ the module), and the same inputs through the JAX package.
 Tolerances: each mixture's images and NLL trace equal to the single-mixture
 path (``fit_multichannel_nmf`` + Wiener images) on the same inits within
 1e-5 relative (the ranks run one torch thread, this process two); against
-the JAX package's ``separate_batch`` from its draws, after 6 EM iterations,
+the JAX package's ``separate_batch`` from the same key, after 6 EM iterations,
 the NLL traces within 1e-5 relative (measured ≤ 2.1e-7) and the images
 within 2e-3 (measured ≤ 7.3e-4): the mixtures are two pure tones at
 n_fft 128, so most bins are near-silent, and the JAX package alone moves
@@ -27,10 +27,12 @@ import torch_corpus  # noqa: F401  (caps torch's threads)
 from exemplars_vc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from exemplars_vc_tpu.parallel.sharded_separate import separate_batch as jax_separate_batch
 from exemplars_vc_tpu.separate.multichannel import random_spatial_init as jax_spatial_init
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.dsp.nsgt import insgt, nsgt
 from exemplars_vc_tpu_torch.parallel.sharded_separate import batch_inits, separate_batch
 from exemplars_vc_tpu_torch.separate.multichannel import _wiener_images, fit_multichannel_nmf
 from test_sharded_separate import _mixture_batch
+from test_torch_separate import key_kw
 from torch_parallel_workers import run_world
 
 WORLD = 2
@@ -56,11 +58,10 @@ def batch():
     X = np.array(_mixture_batch(M=4, seed=3))
     M, F, N, C = X.shape
     key = jax.random.PRNGKey(7)
-    inits = jax_batch_inits(key, M, 2, F, 2, N, C)
     ranks = run_world(WORLD, [("separate_batch", (X, 8, None)),
-                              ("separate_batch", (X, 6, inits)),
+                              ("separate_batch", (X, 6, np.asarray(key).astype(np.int64))),
                               ("nsgt", (NSGT_X,))])
-    return dict(X=X, key=key, inits=inits, ranks=ranks)
+    return dict(X=X, key=key, ranks=ranks)
 
 
 NSGT_X = np.random.default_rng(7).standard_normal((4, 2560)).astype(np.float32)
@@ -86,11 +87,11 @@ def test_separate_batch_runs_sharded_over_mesh(batch):
 
 def test_separate_batch_matches_single_mixture_path(batch):
     """Each mixture equals fitting it alone with the same inits (the
-    generator's draws in mixture order), and the JAX package's
-    ``separate_batch`` from its own draws."""
+    default key's draws), and the JAX package's ``separate_batch`` from the
+    same key, each package drawing its own inits."""
     X = batch["X"]
     M, F, N, C = X.shape
-    W0, H0, R0 = batch_inits(torch.Generator().manual_seed(0), M, 2, F, 2, N, C)
+    W0, H0, R0 = batch_inits(prng.PRNGKey(0), M, 2, F, 2, N, C)
     res = batch["ranks"][0]["cases"][0]
     for m in range(M):
         single = fit_multichannel_nmf(X[m], n_sources=2, n_components=2, n_em=8,
@@ -107,12 +108,32 @@ def test_separate_batch_matches_single_mixture_path(batch):
         assert rel(got["nll"][m].numpy(), np.asarray(ref_nll)[m]) < 1e-5, m
 
 
+@pytest.mark.parametrize("seed", [None, 7])
+def test_separate_batch_from_a_key_matches_jax(seed):
+    """No inits, in one process: W0 and H0 as one draw each and R0 from
+    ``split(kr, M)``, from the default key (None) or another, in both
+    packages; the tolerances of the JAX comparison above."""
+    X = np.array(_mixture_batch(M=4, seed=3))
+    M, F, N, C = X.shape
+    jk, tk = key_kw(seed)
+    k = 0 if seed is None else seed
+    for got, want in zip(batch_inits(prng.PRNGKey(k), M, 2, F, 2, N, C),
+                         jax_batch_inits(jax.random.PRNGKey(k), M, 2, F, 2, N, C)):
+        assert rel(got.numpy(), want) < 1e-6
+    ref_img, ref_nll = jax_separate_batch(jnp.asarray(X), n_sources=2, n_components=2, n_em=6,
+                                          mesh=jax_make_mesh(data=4, dict_=1), **jk)
+    img, nll = separate_batch(X, n_sources=2, n_components=2, n_em=6, device=CPU, **tk)
+    for m in range(M):
+        assert rel(img[m].numpy(), np.asarray(ref_img)[m]) < 2e-3, m
+        assert rel(nll[m].numpy(), np.asarray(ref_nll)[m]) < 1e-5, m
+
+
 def test_one_process_world_returns_plain_tensors():
     """Without a process group the batch runs in this process and returns
     plain tensors; a batch the data axis does not divide raises."""
     X = np.array(_mixture_batch(M=2, seed=1))
     images, nll = separate_batch(X, n_sources=2, n_components=2, n_em=3,
-                                 generator=torch.Generator().manual_seed(0), device=CPU)
+                                 key=prng.PRNGKey(0), device=CPU)
     assert type(images) is torch.Tensor and images.shape == (2, 2) + X.shape[1:]
     assert nll.shape == (2, 3)
     with pytest.raises(ValueError, match="not divisible"):

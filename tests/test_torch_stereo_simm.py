@@ -3,9 +3,11 @@ on the CPU: counterparts of ``tests/test_stereo_simm.py`` (held to the
 float64 oracle ``tests/oracles/stereo_simm.py`` as the JAX module is), and
 the same inputs through the JAX package and the port.
 
-The port cannot reproduce ``jax.random``, so where the JAX function draws
-its inits from a key, the test draws them through the JAX package (the same
-splits, :func:`jax_simm_draws`) and hands them to the port as numpy arrays.
+The port draws its inits from the JAX package's keys (``prng``): the
+``*_from_a_key_matches_jax`` tests run without inits from the default and
+one other key. The other parity tests draw the inits through the JAX
+package (the same splits, :func:`jax_simm_draws`) and hand them to the
+port as numpy arrays.
 
 Tolerances: against the oracle as the JAX test (5e-3 relative to each
 factor's largest entry after 6 iterations, the IS trace rtol 1e-3); against
@@ -27,6 +29,7 @@ from exemplars_vc_tpu.separate.lead import harmonic_dictionary as jax_harmonic_d
 from exemplars_vc_tpu.separate.lead import hann_filter_basis as jax_hann_filter_basis
 from exemplars_vc_tpu.separate.lead import klglott88_amplitudes as jax_klglott88
 from exemplars_vc_tpu.separate.lead import melody_transition as jax_melody_transition
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.separate import separate_lead_stereo, stereo_simm
 from exemplars_vc_tpu_torch.separate.lead import (
     hann_filter_basis,
@@ -36,6 +39,7 @@ from exemplars_vc_tpu_torch.separate.lead import (
 )
 from exemplars_vc_tpu_torch.separate.stereo_simm import simm_draws
 from test_stereo_simm import _stereo_melody_mixture, _tiny_problem
+from test_torch_separate import key_kw
 from tests.oracles.stereo_simm import stereo_simm_oracle
 
 CPU = "cpu"
@@ -211,36 +215,69 @@ def test_stereo_simm_matches_jax(update_hgamma, update_accomp):
         assert rel(got_d[name].numpy(), ref_d[name]) < 5e-3, name
 
 
+@pytest.mark.parametrize("seed", [None, 7])
+def test_stereo_simm_from_a_key_matches_jax(seed):
+    """No inits: the six-way split of the key (default ``PRNGKey(0)`` when
+    None) in both packages; the tolerance of ``test_stereo_simm_matches_jax``."""
+    SXR, SXL, WF0, WGAMMA, _, _ = _tiny_problem(seed=7)
+    jk, tk = key_kw(seed)
+    kw = dict(n_filters=3, n_accomp=4, n_iter=6)
+    ref = jax_stereo_simm(SXR, SXL, WF0, WGAMMA, **kw, **jk)
+    got = stereo_simm(SXR, SXL, WF0, WGAMMA, device=CPU, **kw, **tk)
+    for name in FIELDS + ("is_error",):
+        assert rel(getattr(got, name).numpy(), getattr(ref, name)) < 5e-3, name
+
+
 def test_simm_draws_fill_only_what_is_missing():
-    g = torch.Generator().manual_seed(3)
-    d = simm_draws(g, 9, 7, 5, 4, 3, 2)
+    d = simm_draws(prng.PRNGKey(3), 9, 7, 5, 4, 3, 2)
     assert {k: tuple(v.shape) for k, v in d.items()} == {
         "HGAMMA_init": (4, 3), "HPHI_init": (3, 7), "HF0_init": (5, 7), "WM_init": (9, 2),
         "HM_init": (2, 7), "beta_init": (2, 2)}
     assert torch.allclose(d["beta_init"].sum(0), torch.ones(2))
     SXR, SXL, WF0, WGAMMA, _, _ = _tiny_problem(F=9, N=7, NF0=5, P=4)
     a = stereo_simm(SXR, SXL, WF0, WGAMMA, n_filters=3, n_accomp=2, n_iter=2,
-                    generator=torch.Generator().manual_seed(3), device=CPU)
+                    key=prng.PRNGKey(3), device=CPU)
     b = stereo_simm(SXR, SXL, WF0, WGAMMA, n_filters=3, n_accomp=2, n_iter=2, device=CPU,
-                    **simm_draws(torch.Generator().manual_seed(3), 9, 7, 5, 4, 3, 2))
+                    **simm_draws(prng.PRNGKey(3), 9, 7, 5, 4, 3, 2))
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 @pytest.mark.parametrize("n_warmup", [10, 0])
 def test_separate_lead_stereo_matches_jax(n_warmup):
-    """The slice's stereo pipeline from the JAX draws: host powers → round 1
-    (warm-up + fit) → Viterbi melody → round 2 → per-channel Wiener
-    masks, 6 iterations a round on the benchmark mixture."""
+    """The slice's stereo pipeline, both packages from ``PRNGKey(5)``: host
+    powers → round 1 (warm-up + fit) → Viterbi melody → round 2 →
+    per-channel Wiener masks, 6 iterations a round on the benchmark
+    mixture."""
     from exemplars_vc_tpu_torch.io.standin import synthetic_mixture
 
     x = synthetic_mixture()
-    key = jax.random.PRNGKey(5)
+    jk, tk = key_kw(5)
     kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0, f0_max=800.0,
               n_accomp=20, n_iter=6, n_warmup=n_warmup)
-    ref = jax_separate_lead_stereo(jnp.asarray(x), key=key, **kw)
-    r1, r2 = jax_round_draws(key, x, 1024, 256, ref.f0_candidates, 20, 4, 20)
-    got = separate_lead_stereo(x, round1_init=r1, round2_init=r2, device=CPU, **kw)
+    ref = jax_separate_lead_stereo(jnp.asarray(x), **jk, **kw)
+    got = separate_lead_stereo(x, device=CPU, **tk, **kw)
     assert np.array_equal(got.f0_candidates, ref.f0_candidates)
+    assert np.mean(got.f0 == ref.f0) >= 0.99
+    for part in ("lead", "accomp"):
+        want = np.asarray(getattr(ref, part))
+        assert np.abs(getattr(got, part).numpy() - want).max() < 1e-4 * np.abs(x).max(), part
+    for name in FIELDS + ("is_error",):
+        assert rel(getattr(got.model, name).numpy(), getattr(ref.model, name)) < 5e-3, name
+
+
+@pytest.mark.parametrize("seed", [None, 7])
+def test_separate_lead_stereo_from_a_key_matches_jax(seed):
+    """The two-round pipeline with no inits: each round's fits draw from
+    its half of ``split(key)`` in both packages; the tolerances of
+    ``test_separate_lead_stereo_matches_jax``."""
+    from exemplars_vc_tpu_torch.io.standin import synthetic_mixture
+
+    x = synthetic_mixture()
+    jk, tk = key_kw(seed)
+    kw = dict(sample_rate=16000.0, n_fft=1024, hop_length=256, f0_min=100.0, f0_max=800.0,
+              n_accomp=20, n_iter=6)
+    ref = jax_separate_lead_stereo(jnp.asarray(x), **kw, **jk)
+    got = separate_lead_stereo(x, device=CPU, **kw, **tk)
     assert np.mean(got.f0 == ref.f0) >= 0.99
     for part in ("lead", "accomp"):
         want = np.asarray(getattr(ref, part))

@@ -1,7 +1,7 @@
 """The port's warping-net trainer (``exemplars_vc_tpu_torch/models/train.py``)
 against the JAX package's on the stand-in corpus (3 pairs, 3 epochs), both
 from the JAX package's initial parameters (carried in by monkeypatching the
-port's ``init_warping_params``).
+port's ``init_warping_params``) or each from its own draws of one seed.
 
 Tolerances: the datasets (the dictionary's MFCC along equal DTW paths, or
 |STFT| along them) within 1e-4 of the largest value, masks equal; the
@@ -39,7 +39,7 @@ def standin(tmp_path_factory):
 def jax_init_into_port(monkeypatch):
     """The port's trainer starts from the JAX package's initial parameters
     (``init_warping_params(PRNGKey(seed))``)."""
-    def init(cfg, generator=None):
+    def init(key, cfg):
         jcfg = jwarp.WarpingNetConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
         params = jwarp.init_warping_params(jax.random.PRNGKey(0), jcfg)
         return twarp.warping_params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg)
@@ -76,6 +76,21 @@ def test_train_warping_net_matches_jax(standin, tmp_path, monkeypatch):
     out_t = ttrain.apply_warping_net(tstore, cfg, feats, device="cpu").numpy()
     out_j = np.asarray(jtrain.apply_warping_net(jstore, jcfg, jnp.asarray(feats)))
     np.testing.assert_allclose(out_t, out_j, rtol=0, atol=1e-4 * np.abs(out_j).max())
+
+
+def test_train_warping_net_from_a_seed_matches_jax(standin, tmp_path):
+    """Each trainer draws its initial net from ``PRNGKey(seed)`` itself; the
+    port's draws are the JAX package's, so the runs agree as above."""
+    jstore, tstore = JArtifactStore(str(tmp_path / "j")), ArtifactStore(str(tmp_path / "t"))
+    ref = jtrain.train_warping_net(jload_config(overrides=OVERRIDES), jstore, standin, nb_file=3,
+                                   seed=5)
+    got = ttrain.train_warping_net(load_config(overrides=OVERRIDES), tstore, standin, nb_file=3,
+                                   seed=5, device="cpu")
+    for k in ("epochs_run", "best_epoch", "steps_run"):
+        assert got[k] == ref[k], k
+    for h_t, h_j in zip(got["history"], ref["history"], strict=True):
+        for k in ("train_loss", "test_loss", "test_l1_per_frame"):
+            np.testing.assert_allclose(h_t[k], h_j[k], rtol=1e-3)
 
 
 @pytest.mark.parametrize("features", ["dict", "stft"])

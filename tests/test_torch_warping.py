@@ -29,6 +29,7 @@ import torch_corpus  # noqa: F401  (caps torch's threads)
 from exemplars_vc_tpu.io.store import ArtifactStore as JArtifactStore
 from exemplars_vc_tpu.models import train as jtrain
 from exemplars_vc_tpu.models import warping as jwarp
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.io.store import ArtifactStore
 from exemplars_vc_tpu_torch.models import train as ttrain
 from exemplars_vc_tpu_torch.models import warping as twarp
@@ -83,19 +84,14 @@ def test_config_and_init_distributions_match_jax():
     assert twarp.WarpingNetConfig() == twarp.WarpingNetConfig(**dataclasses.asdict(
         jwarp.WarpingNetConfig()))
     for kw in VARIANTS.values():
-        cfg = twarp.WarpingNetConfig(**kw)
-        net = twarp.init_warping_params(cfg, torch.Generator().manual_seed(0))
-        _, params = jax_params(kw)
-        for got, ref in zip(twarp.warping_params_to_jax(net), jax.tree_util.tree_leaves(params)):
-            ref = np.asarray(ref)
-            assert got.shape == ref.shape
-            # same support: zero biases with the forget gate at 1, weights
-            # uniform inside the same bound
-            if ref.ndim == 1:
-                np.testing.assert_array_equal(got, ref)
-            else:
-                bound = np.abs(ref).max()
-                assert np.abs(got).max() <= bound * 1.01 and np.abs(got).max() >= bound * 0.9
+        for seed in (0, 7):
+            # the same key gives the same net: every leaf bit-equal
+            cfg = twarp.WarpingNetConfig(**kw)
+            net = twarp.init_warping_params(prng.PRNGKey(seed), cfg)
+            _, params = jax_params(kw, seed)
+            for got, ref in zip(twarp.warping_params_to_jax(net),
+                                jax.tree_util.tree_leaves(params)):
+                np.testing.assert_array_equal(got, np.asarray(ref))
 
 
 def test_loss_and_one_rmsprop_step_match_jax():

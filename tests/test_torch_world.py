@@ -12,7 +12,8 @@ Tolerances, each stated where it is checked:
   voicing flip cannot hide a drift): refined f0 within 0.1 cent, sp within
   0.01 dB, ap within 1e-3 absolute (measured 0.0004 cents, 0.0003 dB,
   7e-6);
-- ``synthesize`` with the JAX noise injected: relative L2 ≤ 1e-4 (measured
+- ``synthesize`` from the same key, whose noise is the JAX package's within
+  3 ulp: relative L2 ≤ 1e-4 (measured
   5e-5 to 8e-5: the phase is a float32 running sum over every sample, and
   the cosines of k·φ reach 10⁵ rad);
 - ``convert_f0_logmv`` ≤ 1e-5 relative.
@@ -31,6 +32,7 @@ from exemplars_vc_tpu import world as jw
 from exemplars_vc_tpu.pipelines.convert import convert_f0_logmv as jconvert_f0_logmv
 from exemplars_vc_tpu.world.cheaptrick import world_fft_size as jworld_fft_size
 from exemplars_vc_tpu.world.dio import _extend_from_candidates as jextend
+from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch import world as tw
 from exemplars_vc_tpu_torch.io.wav import read_wav
 from exemplars_vc_tpu_torch.pipelines.convert import convert_f0_logmv
@@ -69,12 +71,10 @@ def jref(signals):
         centers = np.arange(len(refined)) * 80
         sp = np.asarray(jw.cheaptrick(xj, jnp.asarray(refined), jnp.asarray(centers)))
         ap = np.asarray(jw.d4c_aperiodicity(xj, jnp.asarray(refined), jnp.asarray(centers)))
-        n = (len(refined) - 1) * 80
-        noise = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (n,), jnp.float32))
         out[name] = dict(
             dio=f0, harvest=np.asarray(jw.estimate_f0_harvest(xj)[0]),
             ncc=np.asarray(jw.estimate_f0(xj)[0]), tracked=np.asarray(jw.estimate_f0_tracked(xj)[0]),
-            refined=refined, centers=centers, sp=sp, ap=ap, noise=noise,
+            refined=refined, centers=centers, sp=sp, ap=ap,
             audio=np.asarray(jw.synthesize(jnp.asarray(refined), jnp.asarray(sp), jnp.asarray(ap))))
     return out
 
@@ -134,21 +134,42 @@ def test_d4c_matches_jax(signals, jref, sig):
 
 @pytest.mark.parametrize("sig", SIGNALS)
 def test_synthesize_matches_jax_with_its_noise(signals, jref, sig):
+    """The default key draws the JAX synthesizer's own noise
+    (``normal(PRNGKey(0))``, within 3 ulp)."""
     r = jref[sig]
     y = tw.synthesize(torch.as_tensor(r["refined"]), torch.as_tensor(r["sp"]),
-                      torch.as_tensor(r["ap"]), noise=torch.as_tensor(r["noise"])).numpy()
+                      torch.as_tensor(r["ap"])).numpy()
     assert y.shape == r["audio"].shape and np.isfinite(y).all()
     assert np.linalg.norm(y - r["audio"]) / np.linalg.norm(r["audio"]) <= 1e-4
 
 
 def test_synthesize_noise_is_seeded(jref):
-    """Without ``noise`` the draw comes from a generator seeded with 0: two
-    calls give the same audio, another seed other audio."""
+    """The noise comes from ``key`` (``PRNGKey(0)`` when None): two calls
+    give the same audio, another key other audio, the JAX package's for
+    that key."""
     r = jref["speech"]
     args = [torch.as_tensor(r[k]) for k in ("refined", "sp", "ap")]
     a, b = tw.synthesize(*args), tw.synthesize(*args)
-    c = tw.synthesize(*args, generator=torch.Generator().manual_seed(1))
-    assert torch.equal(a, b) and not torch.equal(a, c)
+    c = tw.synthesize(*args, key=prng.PRNGKey(1)).numpy()
+    assert torch.equal(a, b) and not np.array_equal(a.numpy(), c)
+    want = np.asarray(jw.synthesize(*(jnp.asarray(r[k]) for k in ("refined", "sp", "ap")),
+                                    key=jax.random.PRNGKey(1)))
+    assert np.linalg.norm(c - want) / np.linalg.norm(want) <= 1e-4
+
+
+def test_default_noise_is_kept_and_sliced(jref):
+    """The default key's noise is drawn once and sliced: a shorter, a longer
+    and again a shorter synthesis give the audio of an explicit
+    ``PRNGKey(0)``, whose draw is made anew each call."""
+    from exemplars_vc_tpu_torch.world import synthesis
+
+    r = jref["speech"]
+    args = [torch.as_tensor(r[k]) for k in ("refined", "sp", "ap")]
+    synthesis._DEFAULT_NOISE.clear()
+    for n in (len(args[0]) // 2, len(args[0]), len(args[0]) // 3):
+        part = [a[:n] for a in args]
+        assert torch.equal(tw.synthesize(*part), tw.synthesize(*part, key=prng.PRNGKey(0))), n
+    assert len(synthesis._DEFAULT_NOISE[torch.device("cpu")]) == (len(args[0]) - 1) * 80
 
 
 def test_analyze_batch_equals_single(signals):

@@ -6,21 +6,18 @@ frames, log-MV f0, power-domain sp, residual compensation on.
 
 Tolerances: equal n_iter for each solve; converted sp and ap within 1e-3
 relative L2 and f0 within 1e-5 (float32 rounding through the analysis and
-20 MU steps; measured ~1e-6); the audio within 1e-3 relative L2 with the
-JAX synthesizer's noise injected (measured 8e-4: the synthesizer's phase
+20 MU steps; measured ~1e-6); the audio within 1e-3 relative L2, the
+synthesizer drawing the JAX synthesizer's noise from the same default key
+(measured 8e-4: the synthesizer's phase
 integrates f0 over every sample, so an f0 difference of 2e-4 Hz becomes a
 phase drift); the MCD within 0.05 dB. The conversion features of each f0
 estimator: voicing on ≥ 99 % of frames, 99th percentile ≤ 1 cent, sp and
 ap within 1e-3 relative L2.
 """
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from exemplars_vc_tpu.config import load_config as jload_config
 from exemplars_vc_tpu.io.store import ArtifactStore as JArtifactStore
@@ -33,7 +30,6 @@ from exemplars_vc_tpu_torch.pipelines import conv_dicts
 from exemplars_vc_tpu_torch.pipelines import convert as tconvert
 from exemplars_vc_tpu_torch.pipelines.make_dict import from_jax_artifacts
 from exemplars_vc_tpu_torch.pipelines.serve import Converter
-from exemplars_vc_tpu_torch.world import synthesis
 from torch_corpus import OVERRIDES, rel_l2, write_synthetic_corpus
 
 WORLD = OVERRIDES + ["data.use_stft=false"]
@@ -46,8 +42,8 @@ def corpus(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_world(corpus, tmp_path_factory):
-    """The JAX package's WORLD conversion of the held-out input, its store,
-    n_iter of each solve, and the noise its synthesizer drew."""
+    """The JAX package's WORLD conversion of the held-out input, its store
+    and n_iter of each solve."""
     data, src, tar = corpus
     jcfg = jload_config(overrides=WORLD)
     jstore = JArtifactStore(str(tmp_path_factory.mktemp("jax_store")))
@@ -59,14 +55,7 @@ def jax_world(corpus, tmp_path_factory):
     n_iter = {name: int(jconvert._solve_activations(jnp.asarray(feats[name]),
                                                      jnp.asarray(dicts[name][0]), jcfg).n_iter)
               for name in ("sp", "ap")}
-    noise = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (len(ref.audio),), jnp.float32))
-    return ref, jstore, n_iter, noise
-
-
-def _with_noise(monkeypatch, noise):
-    """The port's synthesizer drawing the JAX synthesizer's noise."""
-    monkeypatch.setattr(tconvert, "synthesize",
-                        functools.partial(synthesis.synthesize, noise=torch.as_tensor(noise)))
+    return ref, jstore, n_iter
 
 
 def _assert_same_world_conversion(got, ref, n_iter):
@@ -83,10 +72,9 @@ def _assert_same_world_conversion(got, ref, n_iter):
     assert abs(got.mcd_vs_reference - ref.mcd_vs_reference) < 0.05
 
 
-def test_world_convert_matches_jax(corpus, jax_world, tmp_path, monkeypatch):
+def test_world_convert_matches_jax(corpus, jax_world, tmp_path):
     data, src, tar = corpus
-    ref, jstore, n_iter, noise = jax_world
-    _with_noise(monkeypatch, noise)
+    ref, jstore, n_iter = jax_world
     cfg = load_config(overrides=WORLD)
     got = tconvert.convert_utterance(cfg, ArtifactStore(str(tmp_path)), data, src, nb_file=3,
                                      reference_wav=tar, device="cpu")
@@ -101,16 +89,15 @@ def test_world_convert_matches_jax(corpus, jax_world, tmp_path, monkeypatch):
         assert ArtifactStore(str(tmp_path)).has(key)
 
 
-def test_world_convert_with_jax_dictionaries(corpus, jax_world, tmp_path, monkeypatch):
+def test_world_convert_with_jax_dictionaries(corpus, jax_world, tmp_path):
     """The JAX package's dictionary and WORLD features (its store), carried
     over: the port's solves and synthesis alone against the reference's."""
     data, src, tar = corpus
-    ref, jstore, n_iter, noise = jax_world
+    ref, jstore, n_iter = jax_world
     store = ArtifactStore(jstore.root)
     arrays = store.load("exemplar_dict_SF12TF1_mfcc_3")
     store.save("exemplar_dict_SF12TF1_mfcc_3_torch", **from_jax_artifacts(arrays, "cpu").to_numpy())
     tconvert._DICTS_MEMO.clear()
-    _with_noise(monkeypatch, noise)
     got = tconvert.convert_utterance(load_config(overrides=WORLD), store, data, src, nb_file=3,
                                      reference_wav=tar, device="cpu")
     _assert_same_world_conversion(got, ref, n_iter)

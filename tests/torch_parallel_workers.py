@@ -137,7 +137,7 @@ def train_case(rank, world, data, store_root, leaves, overrides):
     from exemplars_vc_tpu_torch.models import train as ttrain
     from exemplars_vc_tpu_torch.models.warping import warping_params_from_jax
 
-    ttrain.init_warping_params = lambda cfg, generator=None: warping_params_from_jax(leaves, cfg)
+    ttrain.init_warping_params = lambda key, cfg: warping_params_from_jax(leaves, cfg)
     store = ArtifactStore(os.path.join(store_root, f"t{rank}"))
     m = ttrain.train_warping_net(load_config(overrides=overrides), store, data, nb_file=3,
                                  data_parallel=True, device="cpu")
@@ -145,16 +145,15 @@ def train_case(rank, world, data, store_root, leaves, overrides):
     return {"metrics": m, "params": store.load(m["checkpoint"])}
 
 
-def separate_batch_case(rank, world, X, n_em, inits):
+def separate_batch_case(rank, world, X, n_em, key):
     """``separate_batch`` of the whole batch over a mesh of every rank,
-    from the given inits (W0, H0, R0) or, with None, from a generator of
-    seed 0."""
+    from ``key`` (a key's two words; None: the default key ``PRNGKey(0)``)."""
     from exemplars_vc_tpu_torch.parallel.sharded_separate import separate_batch
 
     mesh = make_mesh(data=world, dict_=1)
-    W0, H0, R0 = inits if inits is not None else (None, None, None)
+    key = None if key is None else torch.as_tensor(key, dtype=torch.int64)
     images, nll = separate_batch(X, n_sources=2, n_components=2, n_em=n_em, mesh=mesh,
-                                 W0=W0, H0=H0, R0=R0, device="cpu")
+                                 key=key, device="cpu")
     return {"images": images.full_tensor(), "nll": nll.full_tensor(),
             "local": images.to_local(), "placements": [(type(p).__name__, getattr(p, "dim", None)) for p in images.placements]}
 

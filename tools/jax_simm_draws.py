@@ -4,9 +4,10 @@ draws from ``jax.random.PRNGKey(1)`` on the 2 s separation benchmark mixture
 steps a semitone, 20 filter atoms, 4 filters, 20 accompaniment components),
 one set a round, to ``exemplars_vc_tpu_torch/io/data/jax_simm_draws_key1.npz``.
 
-The port's ``separate_lead_stereo(..., round1_init=, round2_init=)`` takes
-them (``io.standin.jax_simm_draws``), so a run without JAX, on the card too,
-starts where the JAX package's operating-point test starts
+The port's own ``separate_lead_stereo(..., key=prng.PRNGKey(1))`` draws
+the same inits (``tests/test_torch_prng.py`` and ``chip_smoke.py`` phase 11
+hold its draws to the file, without JAX, on the card too), so it starts
+where the JAX package's operating-point test starts
 (``tests/test_separation_platform_parity.py::TestOperatingPoint``).
 ``tests/test_torch_stereo_simm.py`` holds the file equal to a fresh draw.
 

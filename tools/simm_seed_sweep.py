@@ -1,8 +1,8 @@
 """The stereo SIMM's operating point over random starts, in the JAX package
-(``PRNGKey(s)``) and in the port (``torch.Generator().manual_seed(s)``), on
-the CPU: the 2 s separation benchmark mixture at ``bench_separate.py``'s
-settings (n_fft 1024, hop 256, f0 100-800 Hz, 20 accompaniment components,
-15 iterations a round). Prints one line a seed (lead energy share, median
+and in the port, each from its own draws of ``PRNGKey(s)``, on the CPU:
+the 2 s separation benchmark mixture at ``bench_separate.py``'s settings
+(n_fft 1024, hop 256, f0 100-800 Hz, 20 accompaniment components, 15
+iterations a round). Prints one line a seed (lead energy share, median
 voiced f0, lead SDR in dB for each package) and a summary of the shares.
 
     python tools/simm_seed_sweep.py [--seeds 32]
@@ -29,6 +29,7 @@ def main() -> None:
 
     from exemplars_vc_tpu.separate import separate_lead_stereo as jax_separate_lead_stereo
     from exemplars_vc_tpu_torch.io.standin import synthetic_mixture
+    from exemplars_vc_tpu_torch.prng import PRNGKey
     from exemplars_vc_tpu_torch.separate import separate_lead_stereo
 
     torch.set_num_threads(2)
@@ -46,8 +47,7 @@ def main() -> None:
     shares = {"jax": [], "port": []}
     for s in range(args.seeds):
         j = point(jax_separate_lead_stereo(jnp.asarray(x), key=jax.random.PRNGKey(s), **kw))
-        p = point(separate_lead_stereo(x, generator=torch.Generator().manual_seed(s),
-                                       device="cpu", **kw))
+        p = point(separate_lead_stereo(x, key=PRNGKey(s), device="cpu", **kw))
         shares["jax"].append(j[0])
         shares["port"].append(p[0])
         print(f"seed {s}: jax share {j[0]:.4f} f0 {j[1]:.1f} sdr {j[2]:.2f} | "
