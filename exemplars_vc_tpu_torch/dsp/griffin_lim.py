@@ -13,6 +13,9 @@ launches. A graph holds ``GRAPH_BLOCK`` iterations over static buffers
 (magnitude, angles, momentum state) and is replayed ``n_iter //
 GRAPH_BLOCK`` times, a graph of the remainder once; both are captured at the
 first call of a shape and kept (``griffin_lim.captures`` counts captures).
+While a profiler records, each miss of the cache (a new shape's buffers and
+the least recent shape's eviction) and each capture is a
+``griffin_lim.capture`` span (``obs.profiling``).
 The same kernels run in the same order as the eager loop, so the result is
 bit-equal to it; ``_graph=False`` runs the eager loop (the CPU always does).
 """
@@ -27,6 +30,7 @@ import torch
 
 from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.dsp.stft import istft, stft
+from exemplars_vc_tpu_torch.obs.profiling import Timer
 
 # iterations a captured graph holds: blocks of 10 captured faster and
 # replayed no slower than blocks of 50 or one graph of all 300 (PERF.md), so
@@ -73,11 +77,13 @@ class _GraphedLoop:
     def _graph(self, n_iter: int) -> torch.cuda.CUDAGraph:
         g = self.graphs.get(n_iter)
         if g is None:
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=self.pool):
-                angles, prev = _iterate(self.mag, self.angles, self.prev, *self.args, n_iter)
-                self.angles.copy_(angles)
-                self.prev.copy_(prev)
+            with Timer(self.mag.device, name="griffin_lim.capture"):
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, pool=self.pool):
+                    angles, prev = _iterate(self.mag, self.angles, self.prev, *self.args,
+                                            n_iter)
+                    self.angles.copy_(angles)
+                    self.prev.copy_(prev)
             self.graphs[n_iter] = g
             griffin_lim.captures += 1
         return g
@@ -111,10 +117,11 @@ def _graphed_loop(mag: torch.Tensor, n_fft: int, hop_length: int,
     with _loops_lock:
         loop = _loops.get(key)
         if loop is None:
-            loop = _loops[key] = _GraphedLoop(tuple(mag.shape), mag.device, n_fft, hop_length,
-                                              alpha)
-            if len(_loops) > _GRAPHS_KEPT:
-                _loops.popitem(last=False)
+            with Timer(mag.device, name="griffin_lim.capture"):
+                loop = _loops[key] = _GraphedLoop(tuple(mag.shape), mag.device, n_fft,
+                                                  hop_length, alpha)
+                if len(_loops) > _GRAPHS_KEPT:
+                    _loops.popitem(last=False)
         _loops.move_to_end(key)
         return loop
 

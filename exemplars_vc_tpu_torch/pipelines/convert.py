@@ -142,7 +142,8 @@ def _solve_activations(X: torch.Tensor, A: torch.Tensor, cfg: Config,
     :func:`_preprocess_frames` on X; A still gets both steps here, gated on
     its own width. ``nmf.normalize_exemplars`` solves on unit-L2 atoms and
     returns H in the unnormalised basis. After the solve:
-    ``nmf.prune_topk``, ``nmf.activation_power``, ``nmf.h_smooth``."""
+    ``nmf.prune_topk``, ``nmf.activation_power``, ``nmf.h_smooth``. The
+    solver runs in the ``nmf`` span (F, K, D and n_iter of the solve)."""
     n = cfg.nmf
     c = n.context_frames
     if n.solve_domain == "mel" and A.shape[1] > n.solve_mels:
@@ -154,14 +155,17 @@ def _solve_activations(X: torch.Tensor, A: torch.Tensor, cfg: Config,
         if not x_preprocessed:
             X = _stack_context(X, c)
         A = _stack_context(A, c)
+    A_solve = A
     if n.normalize_exemplars:
         # X ≈ H'·(A/s) = (H'/s)·A. A zero padding row stays zero in A/s, its
         # numerator column is 0, and its H column is 0 after the first step
         s = torch.clamp(torch.sqrt(torch.sum(A * A, dim=1)), min=1e-12)
-        st = _dispatch_solver(X, A / s[:, None], cfg)
+        A_solve = A / s[:, None]
+    with Timer(X.device, name="nmf", F=X.shape[0], K=A.shape[0], D=A.shape[1]) as t:
+        st = _dispatch_solver(X, A_solve, cfg)
+        t.attrs["n_iter"] = st.n_iter
+    if n.normalize_exemplars:
         st = NmfState(st.H / s[None, :], st.n_iter, st.error)
-    else:
-        st = _dispatch_solver(X, A, cfg)
     if n.prune_topk > 0:
         beta = n.beta_loss if n.solver in ("auto", "mu", "mu_pallas") else "frobenius"
         st = prune_topk_refine(X, A, st.H, k=n.prune_topk, beta_loss=beta,
@@ -415,7 +419,8 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
     never on the STFT path. ``sync_stages=True`` fences the device around
     each stage so the timings ("dicts", "features", "nmf_solve",
     "synthesis") are device times; otherwise a stage's queued work may
-    drain inside a later one."""
+    drain inside a later one. While a profiler records, the last three are
+    the spans ``features``, ``solve`` and ``synthesis`` (``obs.profiling``)."""
     device = resolve_device(device)
     timings: dict[str, float] = {}
     m = cfg.mcep
@@ -427,7 +432,7 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
     x, sr = read_wav(wav_path)
     if use_residual is None:
         use_residual = kind == "world" and cfg.nmf.use_residual != "off"
-    with Timer(device, sync_stages) as t:
+    with Timer(device, sync_stages, name="features") as t:
         if kind == "stft":
             S_in = extract_stft_complex(x, cfg, device)
             feats = {"stft": torch.abs(S_in)}
@@ -435,7 +440,7 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
             feats = extract_world_features(x, cfg, device)
     timings["features"] = t.elapsed
 
-    with Timer(device, sync_stages) as t:
+    with Timer(device, sync_stages, name="solve", residual=use_residual) as t:
         converted, states = _convert_features_of(feats, dicts, cfg, use_residual)
     timings["nmf_solve"] = t.elapsed
     solves = {}
@@ -446,7 +451,7 @@ def convert_utterance(cfg: Config, store: ArtifactStore, data_path: str, wav_pat
         log.info("NMF[%s]: F=%d K=%d D=%d iters=%d err=%.3g", name, F, K, D, st.n_iter,
                  float(st.error))
 
-    with Timer(device, sync_stages) as t:
+    with Timer(device, sync_stages, name="synthesis") as t:
         if kind == "stft":
             Y = converted["stft"]
             iters = synth_iters if synth_iters is not None else cfg.nmf.griffin_lim_iters

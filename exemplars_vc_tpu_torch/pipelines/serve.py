@@ -84,16 +84,21 @@ class Converter:
     def convert(self, wav_path: str, out_path: str | None = None,
                 synth_iters: int | None = None) -> Converted:
         """Convert one utterance; ``seconds`` is the wall time from the
-        features to the audio on the host."""
+        features to the audio on the host. While a profiler records, the
+        call is a ``convert`` span over ``features``, ``solve`` and
+        ``synthesis`` (``obs.profiling``)."""
         x, sr = read_wav(wav_path)
         if self.kind != "stft":
             return self._convert_world(x, sr, out_path)
-        with Timer(self.device) as t:
-            X, phase = self._features(x)
+        with Timer(self.device, name="convert") as t:
+            with Timer(self.device, name="features"):
+                X, phase = self._features(x)
             A, B = self.dicts["stft"]
-            st = _solve_activations(X, A, self.cfg)
-            Y = convert_features(st.H, B)
-            audio = self._synthesize(Y, phase, len(x), synth_iters).cpu().numpy()
+            with Timer(self.device, name="solve", residual=False):
+                st = _solve_activations(X, A, self.cfg)
+                Y = convert_features(st.H, B)
+            with Timer(self.device, name="synthesis"):
+                audio = self._synthesize(Y, phase, len(x), synth_iters).cpu().numpy()
             err = float(st.error)
         if out_path is not None:
             write_wav(out_path, audio, sr)
@@ -104,11 +109,15 @@ class Converter:
         """One WORLD conversion: analysis, the sp and ap solves (with the
         residual unless ``nmf.use_residual`` is "off"), the log-MV f0,
         synthesis."""
-        with Timer(self.device) as t:
-            feats = extract_world_features(x, self.cfg, self.device)
-            converted, states = _convert_features_of(
-                feats, self.dicts, self.cfg, use_residual=self.cfg.nmf.use_residual != "off")
-            audio = world_synthesize(converted, self.cfg, sr).cpu().numpy()
+        residual = self.cfg.nmf.use_residual != "off"
+        with Timer(self.device, name="convert") as t:
+            with Timer(self.device, name="features"):
+                feats = extract_world_features(x, self.cfg, self.device)
+            with Timer(self.device, name="solve", residual=residual):
+                converted, states = _convert_features_of(feats, self.dicts, self.cfg,
+                                                         use_residual=residual)
+            with Timer(self.device, name="synthesis"):
+                audio = world_synthesize(converted, self.cfg, sr).cpu().numpy()
             err = sum(float(st.error) for st in states.values())
         if out_path is not None:
             write_wav(out_path, audio, sr)

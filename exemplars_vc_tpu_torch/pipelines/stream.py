@@ -19,6 +19,7 @@ from exemplars_vc_tpu_torch.config import Config
 from exemplars_vc_tpu_torch.device import resolve_device
 from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
 from exemplars_vc_tpu_torch.factorize.nmf import convert_features
+from exemplars_vc_tpu_torch.obs.profiling import Timer
 from exemplars_vc_tpu_torch.pipelines.convert import _solve_activations
 
 
@@ -101,8 +102,13 @@ class StreamingConverter:
 
         ``phase_chunk``: the complex STFT (or unit phases) of the source chunk
         on the same frame grid, which seeds Griffin-Lim instead of random
-        phases."""
-        return self._synthesize(self._convert_block(mag_chunk), phase_chunk)
+        phases. While a profiler records, the push is a ``push`` span over
+        ``solve`` and ``synthesis`` (``obs.profiling``)."""
+        with Timer(self.device, name="push"):
+            with Timer(self.device, name="solve"):
+                Y = self._convert_block(mag_chunk)
+            with Timer(self.device, name="synthesis"):
+                return self._synthesize(Y, phase_chunk)
 
     def flush(self) -> np.ndarray:
         """Nothing is buffered beyond the context; kept for API symmetry."""

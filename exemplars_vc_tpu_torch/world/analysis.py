@@ -8,6 +8,7 @@ from typing import NamedTuple
 
 import torch
 
+from exemplars_vc_tpu_torch.obs.profiling import Timer
 from exemplars_vc_tpu_torch.world.cheaptrick import cheaptrick
 from exemplars_vc_tpu_torch.world.d4c import d4c_aperiodicity
 from exemplars_vc_tpu_torch.world.dio import estimate_f0_dio
@@ -37,17 +38,22 @@ def analyze(x: torch.Tensor, sr: int = 16000, frame_period_ms: float = 5.0,
     """WORLD features of x (T,) or of a padded batch of utterances (U, T).
     ``f0_method``: "dio", "harvest", "tracked" or anything else for "ncc"
     (as the reference); ``refine_f0`` runs StoneMask (the reference
-    config's f0_is_refined)."""
+    config's f0_is_refined). While a profiler records, the three steps are
+    the spans ``world.f0`` (the estimate and StoneMask), ``world.cheaptrick``
+    and ``world.d4c`` (``obs.profiling``)."""
     x = x.to(torch.float32)
     hop = int(round(sr * frame_period_ms / 1000.0))
     estimate = F0_METHODS.get(f0_method, estimate_f0)
-    f0, _ = estimate(x, sr=sr, frame_period_ms=frame_period_ms, f0_floor=f0_floor,
-                     f0_ceil=f0_ceil)
-    if refine_f0:
-        f0 = refine_f0_stonemask(x, f0, sr=sr, frame_period_ms=frame_period_ms,
-                                 f0_floor=f0_floor, f0_ceil=f0_ceil)
+    with Timer(x.device, name="world.f0"):
+        f0, _ = estimate(x, sr=sr, frame_period_ms=frame_period_ms, f0_floor=f0_floor,
+                         f0_ceil=f0_ceil)
+        if refine_f0:
+            f0 = refine_f0_stonemask(x, f0, sr=sr, frame_period_ms=frame_period_ms,
+                                     f0_floor=f0_floor, f0_ceil=f0_ceil)
     centers = torch.arange(f0.shape[-1], device=x.device) * hop
-    sp = cheaptrick(x, f0, centers, sr=sr, fft_size=fft_size, f0_floor=f0_floor)
-    ap = d4c_aperiodicity(x, f0, centers, sr=sr, fft_size=fft_size)
+    with Timer(x.device, name="world.cheaptrick"):
+        sp = cheaptrick(x, f0, centers, sr=sr, fft_size=fft_size, f0_floor=f0_floor)
+    with Timer(x.device, name="world.d4c"):
+        ap = d4c_aperiodicity(x, f0, centers, sr=sr, fft_size=fft_size)
     return WorldFeatures(f0=f0, sp=sp, ap=ap, centers=centers, sr=sr,
                          frame_period_ms=frame_period_ms)

@@ -558,3 +558,99 @@ def test_griffin_lim_graph_equals_eager(cuda, seeded):
     y_g2, _ = run(mag * 0.5, True)
     assert griffin_lim.captures == before + 2
     assert torch.equal(y_g2, run(mag * 0.5, False)[0])
+
+
+# -- the program's spans on the card --------------------------------------------
+
+SPAN_CHUNK = 16
+
+
+@pytest.fixture(scope="module")
+def card_converters(tmp_path_factory):
+    """{kind: Converter} on the card over the synthetic corpus, prepared on
+    first use (the tests ask for the ``cuda`` fixture first, so nothing is
+    built without a card)."""
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.pipelines.serve import Converter
+    from torch_corpus import OVERRIDES, write_synthetic_corpus
+
+    data, src, _ = write_synthetic_corpus(tmp_path_factory.mktemp("span_corpus"))
+    store = ArtifactStore(str(tmp_path_factory.mktemp("span_store")))
+    made = {}
+
+    def get(kind):
+        if kind not in made:
+            over = OVERRIDES + (["data.use_stft=false"] if kind == "world" else [])
+            made[kind] = Converter(load_config(overrides=over), store, data, nb_file=3,
+                                   device="cuda")
+        return made[kind], src
+    return get
+
+
+def _traced_spans(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    from exemplars_vc_tpu_torch.obs.profiling import cursor, spans
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        before = cursor()
+        fn()
+        after = cursor()
+    return spans(before, after)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stft", "world", "stream"])
+def test_span_device_times_lie_within_their_roots(cuda, card_converters, kind):
+    """Every span of a conversion (a push) on the card has its device time,
+    from the events on the current stream; a child's lies within its
+    root's, and the three stages (two in a push) within the root."""
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.dsp.stft import stft
+    from exemplars_vc_tpu_torch.io.wav import read_wav
+    from exemplars_vc_tpu_torch.pipelines.stream import StreamingConverter
+    from torch_corpus import OVERRIDES
+
+    conv, src = card_converters("stft" if kind == "stream" else kind)
+    if kind == "stream":
+        x, _ = read_wav(src)
+        S = stft(torch.as_tensor(x, device=cuda), n_fft=400, hop_length=80)
+        A, B = conv.dicts["stft"]
+        sc = StreamingConverter(load_config(overrides=OVERRIDES), A, B, synth_iters=20,
+                                device=cuda)
+
+        def call():
+            for k in range(0, 3 * SPAN_CHUNK, SPAN_CHUNK):
+                sc.push(torch.abs(S[k: k + SPAN_CHUNK]), S[k: k + SPAN_CHUNK])
+    else:
+        def call():
+            conv.convert(src, synth_iters=20)
+    recs = _traced_spans(call)
+    roots = {s["id"]: s for s in recs if s["parent"] is None}
+    assert {r["name"] for r in roots.values()} == {"push" if kind == "stream" else "convert"}
+    assert all(s["device_ms"] is not None and s["device_ms"] >= 0.0 for s in recs)
+    for s in recs:
+        assert s["device_ms"] <= roots[s["root"]]["device_ms"]
+    for root in roots.values():
+        stages = [s for s in recs if s["parent"] == root["id"]]
+        assert len(stages) == (2 if kind == "stream" else 3)
+        assert sum(s["device_ms"] for s in stages) <= root["device_ms"]
+
+
+@pytest.mark.cuda
+def test_a_new_griffin_lim_length_records_a_capture_span(cuda):
+    """A length the graph cache lacks is a miss (one span) and two captures
+    (a block of 10 and a remainder of 5: two spans); the same length again
+    records none."""
+    from exemplars_vc_tpu_torch.dsp.griffin_lim import GRAPH_BLOCK, griffin_lim
+    from exemplars_vc_tpu_torch.dsp.stft import stft
+
+    rng = np.random.default_rng(12)
+    S = stft(torch.as_tensor(rng.standard_normal(16240).astype(np.float32), device=cuda))
+    mag = torch.abs(S)
+    n_iter = GRAPH_BLOCK + 5
+    first = _traced_spans(lambda: griffin_lim(mag, n_iter=n_iter, init_phase=S))
+    assert [s["name"] for s in first] == ["griffin_lim.capture"] * 3
+    assert all(s["host_ms"] > 0.0 and s["device_ms"] is not None for s in first)
+    assert _traced_spans(lambda: griffin_lim(mag, n_iter=n_iter, init_phase=S)) == []
