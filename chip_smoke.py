@@ -34,9 +34,14 @@ Phases (any failure exits non-zero and prints no result line):
    F = 2752 (four utterances of 688 frames), K = 30,720 (the dictionary and
    its four VTLP copies), timed, with bound, share and ``torch.matmul``'s
    time, and at the WORLD path's solve F = 688, K = 6144, D = 513 (the same
-   gates, timed, with bound, share and ``torch.matmul``'s time), with the
-   launch plans of the two split-K cluster kernels (grid, cluster, tile,
-   shared bytes, clusters the card holds at once) and of ``nmf_update``
+   gates, timed, with bound, share and ``torch.matmul``'s time); ``nmf_recon``
+   at the benchmark cells' shapes, K = 14,336 and F × D = 16 × 201 (its
+   16-row tile), 620 × 201 and 620 × 1025 (its 128-row tile), within 1e-5 of
+   its twin, two launches equal bit for bit, the device time of 20 launches
+   beside ``torch.matmul``'s and the bound, with each shape's plan tile; with the
+   launch plans of the persistent split-K ``nmf_recon`` (CTAs, tile, units,
+   K pieces and groups, CTAs the card holds at once), of the fused cluster
+   kernel (grid, cluster, tile, shared bytes, clusters at once) and of ``nmf_update``
    (CTAs, waves at the CTAs an SM that the occupancy query reports, shared
    bytes); the fused Griffin-Lim ``gl_angles_fused`` at 688 × 201 (n_fft
    400, hop 80) and 300 × 25 (n_fft 48, hop 16: a radix-3 pass) after 6
@@ -586,6 +591,56 @@ def nmf_world_shape(torch, np, dev, rng, n_sms) -> dict:
     return out
 
 
+def nmf_recon_served(torch, np, dev, rng, n_sms) -> dict:
+    """``nmf_recon`` at the benchmark cells' shapes over the 14,336-exemplar
+    dictionary: a stream chunk (F = 16, D = 201: the TM = 1 tile), a
+    request on the STFT path (F = 620, D = 201) and on the WORLD path (F =
+    620, D = 1025), both TM = 8. Each is held within 1e-5 relative of its
+    twin, two launches must give equal bits, and each is timed by the
+    profiler's device time of 20 back-to-back launches (median of 3
+    readings) beside ``torch.matmul`` and the bound."""
+    from exemplars_vc_tpu_torch.factorize.nmf_cuda import (
+        co_resident_clusters, nmf_recon, nmf_recon_plain, nmf_recon_plan)
+
+    def per_launch_ms(fn, n=20, reps=3):
+        # the profiler's device time of n launches in a row: at F = 16 the
+        # host takes longer to issue a launch than the kernel runs, so CUDA
+        # events around the loop would time the host
+        fn()
+        return statistics.median(device_ms(lambda: [fn() for _ in range(n)]) / n
+                                 for _ in range(reps))
+
+    out = {}
+    K = 14_336
+    for F, D in ((16, 201), (620, 201), (620, 1025)):
+        pl = nmf_recon_plan(F, K, D, n_sms)
+        A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
+        A[K - 300:] = 0.0
+        A = torch.as_tensor(A, device=dev)
+        H = torch.as_tensor(rng.uniform(0.0, 0.02, (F, K)).astype(np.float32), device=dev)
+        P = nmf_recon_plain(H, A)
+        P1, P2 = nmf_recon(H, A), nmf_recon(H, A)
+        e = rel_err(P1, P)
+        same = bool(torch.equal(P1, P2))
+        ms = per_launch_ms(lambda: nmf_recon(H, A))
+        lib = per_launch_ms(lambda: torch.matmul(H, A))
+        b_ms, b_by = bound(4 * (F * K + K * D + F * D), 2 * F * K * D)
+        say(f"nmf_recon at the served shape F={F} K={K} D={D}: plan tile {pl['tile']}, "
+            f"thread tile {pl['thread_tile']}, {pl['grid'][0]} CTAs "
+            f"({co_resident_clusters('nmf_recon', pl, F, K, D)} at once), {pl['units']} units = "
+            f"{pl['tiles']} tiles x {pl['pieces']} K pieces in {pl['groups']} groups; rel err "
+            f"{e:.3g} (limit 1e-5), repeat equal bits {same}; {ms * 1e3:.1f} us a launch (device, "
+            f"20 in a row), torch.matmul {lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}), "
+            f"roofline share {b_ms / ms:.4f}")
+        if not (e <= 1e-5 and same):
+            fail(f"nmf_recon at F={F} K={K} D={D}: rel err {e:.3g} or repeat launches differ")
+        out[f"{F}x{K}x{D}"] = dict(tile=pl["tile"], rel_err=e, ms=ms, library_ms=lib,
+                                   bound_ms=b_ms, bound_by=b_by)
+        del A, H, P, P1, P2
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, np, dev) -> dict:
     from exemplars_vc_tpu_torch.align import dtw_cuda
     from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
@@ -700,15 +755,22 @@ def phase_kernels(torch, np, dev) -> dict:
 
     # NMF at the main path's shapes
     F, K, D = 688, 7680, 201
-    for name, plan_fn in (("nmf_recon", nmf_recon_plan), ("nmf_mu_fused", nmf_mu_fused_plan)):
-        for k in (K, 115_200):
-            pl = plan_fn(F, k, D, n_sms)
-            ctas = pl["grid"][0] * pl["grid"][1] * pl["grid"][2]
-            say(f"{name} plan at F={F} K={k} D={D}: grid {pl['grid']} = {ctas} CTAs of "
-                f"{pl['threads']} threads, cluster {pl['cluster']}, tile {pl['tile']}, "
-                f"thread tile {pl['thread_tile']}, {pl['stages']}-deep cp.async ring, "
-                f"{pl['smem_bytes']} B shared, K slices {pl['k_bounds'][:3]}..., "
-                f"{co_resident_clusters(name, pl, F, k, D)} clusters at once on {n_sms} SMs")
+    for k in (K, 115_200):
+        pl = nmf_recon_plan(F, k, D, n_sms)
+        say(f"nmf_recon plan at F={F} K={k} D={D}: {pl['grid'][0]} CTAs of {pl['threads']} "
+            f"threads, tile {pl['tile']}, thread tile {pl['thread_tile']}, "
+            f"{pl['stages']}-deep cp.async ring, {pl['smem_bytes']} B shared, "
+            f"{pl['units']} units: {pl['tiles']} tiles x {pl['pieces']} K pieces "
+            f"{pl['piece_bounds'][:3]}... in {pl['groups']} groups, "
+            f"{co_resident_clusters('nmf_recon', pl, F, k, D)} CTAs at once on {n_sms} SMs")
+        pl = nmf_mu_fused_plan(F, k, D, n_sms)
+        ctas = pl["grid"][0] * pl["grid"][1] * pl["grid"][2]
+        say(f"nmf_mu_fused plan at F={F} K={k} D={D}: grid {pl['grid']} = {ctas} CTAs of "
+            f"{pl['threads']} threads, cluster {pl['cluster']}, tile {pl['tile']}, "
+            f"thread tile {pl['thread_tile']}, {pl['stages']}-deep cp.async ring, "
+            f"{pl['smem_bytes']} B shared, K slices {pl['k_bounds'][:3]}..., "
+            f"{co_resident_clusters('nmf_mu_fused', pl, F, k, D)} clusters at once on "
+            f"{n_sms} SMs")
     for k in (K, 115_200):
         pl = nmf_update_plan(F, k, D, n_sms)
         ctas = pl["grid"][0] * pl["grid"][1] * pl["grid"][2]
@@ -864,6 +926,7 @@ def phase_kernels(torch, np, dev) -> dict:
     del As, Xs, Hs, Nums, Ps
     torch.cuda.empty_cache()
     out["_nmf_world"] = nmf_world_shape(torch, np, dev, rng, n_sms)
+    out["_nmf_served"] = nmf_recon_served(torch, np, dev, rng, n_sms)
 
     # the fused Griffin-Lim against its twins, 6 iterations under the PERF.md
     # §2 gates, at n_fft 48 (M = 24 = 8 x 3, a radix-3 pass) and at the main
@@ -938,7 +1001,7 @@ def phase_kernels(torch, np, dev) -> dict:
         f"{fmt_ms(prod[True][1])}), eager {prod[False][0]:.4f} ms (device "
         f"{fmt_ms(prod[False][1])})")
     mcd = out.pop("_dtw_mcd")
-    extra = {k: out.pop(k) for k in ("_dtw_long", "_nmf_world")}
+    extra = {k: out.pop(k) for k in ("_dtw_long", "_nmf_world", "_nmf_served")}
     for name, r in out.items():
         say(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "

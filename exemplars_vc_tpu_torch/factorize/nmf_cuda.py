@@ -7,13 +7,23 @@ plain-PyTorch twins.
 A CUDA tensor goes to the kernel (or the call raises); a CPU tensor goes to
 the twin.
 
-``nmf_recon`` and ``nmf_mu_fused`` are split-K kernels launched as
-thread-block clusters. Their plans (``nmf_recon_plan``, ``nmf_mu_fused_plan``)
-are pure functions of the shape and the card's SM count: the CTA tile, the
-split (CTAs per cluster, one contiguous K slice each), the slice bounds, the
-grid and the dynamic shared memory. Both take the split and the slices from
-``_k_split``, so P sums in the same order on both paths and the fused solve
-equals the two-kernel solve bit for bit. ``nmf_update`` has no split (K is
+``nmf_recon`` is a persistent split-K over every SM, one cooperative launch.
+Its plan (``nmf_recon_plan``) is a pure function of the shape and the card's
+SM count. It cuts P into tiles of 16·TM rows of F by 208 columns of D (TM
+= 8, or 1 where F ≤ 48) and K into pieces that are the same for every tile:
+as many long pieces as whole sets of tiles fit the SMs, and, where SMs are
+left over, one short remainder piece whose units those SMs share. A unit is
+one tile over one piece; each CTA takes one unit or a run of remainder
+units and writes each unit's partial tile to a workspace. After a grid
+barrier every CTA sums the partials in a fixed order: the pieces of each
+group in order, then the groups in order (``recon_order``). The groups are
+the fused kernel's cluster ranks: ``nmf_mu_fused_plan`` takes the recon's
+pieces and groups, each fused CTA sums its group's pieces in the same order
+in registers before the rank-order cluster sum, and so the fused solve
+equals the two-kernel solve bit for bit. On an H100 the recon is bound by
+its FMA rate from F ~ 100 up (52 % of its fp32 bound at F = 620, K =
+14,336, D = 1025) and by reading A from L2 at F = 16 (15 µs a launch;
+``csrc/nmf_mu.cu``'s head note). ``nmf_update`` has no split (K is
 its output axis); its plan (``nmf_update_plan``) gives the tile, the grid
 over K and F and the shared memory of its staging ring, which does not grow
 with D. The C entries refuse a plan that cannot launch, and the wrappers
@@ -31,11 +41,15 @@ from exemplars_vc_tpu_torch.kernels.build import SMEM_LIMIT_BYTES, check, load_l
 
 EPS = 2.220446049250313e-16  # np.finfo(float64).eps — sklearn's EPSILON
 
-MAX_CLUSTER = 8          # portable thread-block cluster size
+MAX_CLUSTER = 8          # portable thread-block cluster size: the fused kernel's ranks
 _BK = 16                 # reduction depth of one staged slice (EVC_BK)
-_THREAD_TILE = (8, 4)    # outputs of one thread (EVC_TM x EVC_TN)
-RECON_TILE = (32, 128)   # nmf_recon's CTA tile, F x D (EVC_RECON_BM/BN)
-_RECON_STAGES = 4        # nmf_recon's cp.async ring (EVC_RECON_NS)
+_THREAD_TILE = (8, 4)    # outputs of one thread in the update and fused kernels
+RECON_THREADS = 256      # nmf_recon: 16 x 16 threads (EVC_RECON_NT)
+RECON_TN = 13            # nmf_recon: D columns of a thread's register tile
+RECON_BN = 16 * RECON_TN  # nmf_recon's D tile, 208 (EVC_RECON_BN)
+_RECON_BK = 16           # nmf_recon's staged slice depth (EVC_RECON_BK)
+_RECON_AP = 20           # A-stage floats a thread column takes, 13 used (EVC_RECON_AP)
+_RECON_STAGES = {1: 6, 8: 4}  # nmf_recon's cp.async ring depth by thread-tile height
 _FUSED_BN = 256          # fused: phase-1 D chunk and phase-2 K pass (EVC_FUSED_BN)
 # fused (F tile, ring depth) instances of evc_fused_any, preferred first
 _FUSED_TILES = ((32, 4), (16, 2), (8, 2))
@@ -73,42 +87,125 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _k_split(F: int, K: int, n_sms: int) -> tuple[int, tuple[int, ...]]:
-    """CTAs per cluster and the bounds of their K slices, shared by both
-    kernels so that P sums in one order on both paths: the smallest of 1, 2,
-    4 and 8 that gives the fused kernel's ceil(F/32) clusters at least
-    ``n_sms`` CTAs (else 8, the portable maximum), fewer only where K has
-    fewer ``_BK`` slices. Powers of two: on an H100 a cluster of 5 to 8 CTAs
-    at one CTA an SM fills only 102 to 120 of the 132 SMs at once and a
-    cluster of 6 fits worst (PERF.md). The slices are contiguous, in order,
-    ``_BK``-aligned, and none is empty (K = 0: one empty slice)."""
-    if K <= 0:
-        return 1, (0, 0)
+def _recon_tm(F: int) -> int:
+    """Rows of F in a recon thread's register tile: 8 (128-row F tiles),
+    or 1 (16-row tiles) where F ≤ 48. A 1 × 13 tile issues 13 FMAs for
+    4.25 shared loads and an 8 × 13 tile 104 for 6, so the short tile pays
+    only where a 128-row tile would be more than 60 % empty."""
+    return 1 if F <= 48 else 8
+
+
+def _recon_pieces(T: int, nkb: int, n_sms: int) -> tuple[int, int]:
+    """The K pieces of ``T`` tiles over ``nkb`` staged slices on ``n_sms``
+    SMs, as (q, rem): q long pieces cut the first nkb − rem slices as evenly
+    as slices allow, then a remainder piece takes the last rem (none where
+    rem = 0). q is the number of whole sets of T tiles that fit the SMs, so
+    each long unit has an SM of its own; the SMs left over share the T
+    remainder units in runs, and rem makes a run as long as a long piece.
+    More tiles than SMs: q equal pieces (at most 8), the units shared out
+    in runs over every SM."""
+    if nkb == 0:
+        return 1, 0
+    q = n_sms // T
+    if q == 0:
+        return min(range(1, min(8, nkb) + 1),
+                   key=lambda s: (_cdiv(T * s, n_sms) * _cdiv(nkb, s), s)), 0
+    q = min(q, nkb)
+    spare = n_sms - T * q
+    if spare == 0 or q == nkb:
+        return q, 0
+    run = _cdiv(T, min(spare, T))        # remainder units a spare SM takes
+
+    def load(rem):
+        return max(_cdiv(nkb - rem, q), run * rem) if rem else _cdiv(nkb, q)
+
+    lo, hi = 1, nkb - q                  # the smallest rem whose run outweighs a long piece
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if run * mid >= _cdiv(nkb - mid, q):
+            hi = mid
+        else:
+            lo = mid + 1
+    return q, min((0, lo - 1, lo), key=lambda rem: (load(rem), rem))
+
+
+def _piece_bounds(K: int, q: int, rem: int) -> tuple[int, ...]:
+    """K bounds of the pieces (EvcPieces::k): q long pieces over the first
+    nkb − rem slices of ``_BK`` rows, then the remainder piece."""
+    nkb = _cdiv(K, _BK)
+    kb = [j * (nkb - rem) // q for j in range(q + 1)] + ([nkb] if rem else [])
+    return tuple(min(K, _BK * b) for b in kb)
+
+
+def _groups(F: int, pieces: int, n_sms: int) -> int:
+    """Groups of pieces, the fused kernel's CTAs per cluster: the smallest
+    of 1, 2, 4 and 8 that gives its ceil(F/32) clusters at least ``n_sms``
+    CTAs (else 8), halved while it exceeds the pieces, so that it stays a
+    power of two and every group has a piece."""
     tiles = _cdiv(F, _FUSED_TILES[0][0])
-    split = next((s for s in (1, 2, 4) if tiles * s >= n_sms), MAX_CLUSTER)
-    split = min(split, _cdiv(K, _BK))
-    step = _cdiv(_cdiv(K, split), _BK) * _BK
-    split = _cdiv(K, step)
-    return split, tuple(min(i * step, K) for i in range(split)) + (K,)
+    g = next((c for c in (1, 2, 4) if tiles * c >= n_sms), MAX_CLUSTER)
+    while g > pieces:
+        g //= 2
+    return g
 
 
-def _recon_smem_bytes(bm: int) -> int:
-    """The cp.async ring (k-major H and A stages), which the partial tile
-    reuses."""
-    return 4 * max(_RECON_STAGES * _BK * (bm + 4 + RECON_TILE[1]), bm * RECON_TILE[1])
+def _recon_smem_bytes(tm: int) -> int:
+    """The cp.async ring: an F-major H stage of 16·tm rows with rows of
+    ``_RECON_BK`` + 4 floats, and a k-major A stage of ``_RECON_BK`` rows of
+    16 thread columns of ``_RECON_AP`` floats."""
+    return 4 * _RECON_STAGES[tm] * (16 * tm * (_RECON_BK + 4) + _RECON_BK * 16 * _RECON_AP)
 
 
 def nmf_recon_plan(F: int, K: int, D: int, n_sms: int) -> dict:
-    """``nmf_recon``'s launch plan: a 32 × 128 (F × D) tile per cluster of
-    ``split`` CTAs, 128 threads of 8 × 4 outputs each, grid (split,
-    D tiles, F tiles)."""
-    bm, bn = RECON_TILE
-    split, bounds = _k_split(F, K, n_sms)
-    return {"tile": (bm, bn), "thread_tile": _THREAD_TILE,
-            "threads": bm * bn // (_THREAD_TILE[0] * _THREAD_TILE[1]),
-            "stages": _RECON_STAGES, "split": split, "cluster": (split, 1, 1),
-            "k_bounds": bounds, "grid": (split, _cdiv(D, bn), _cdiv(F, bm)),
-            "smem_bytes": _recon_smem_bytes(bm)}
+    """``nmf_recon``'s launch plan: 256 threads of TM × 13 outputs each, a
+    tile of 16·TM rows of F by 208 columns of D, the K pieces
+    (``piece_bounds``: ``long_pieces`` long ones, then a remainder of
+    ``rem_kb`` slices where ``rem_kb`` > 0), their ``groups`` (``k_bounds``:
+    the groups' K bounds, as the fused kernel's ranks take them) and the
+    persistent grid: ``single_ctas`` CTAs with one unit each, then
+    ``range_ctas`` CTAs that share ``range_units`` units in runs
+    (``recon_units``). A unit u is tile u % T over piece u // T, so the CTAs
+    in flight read one K slice of A for every F tile at once."""
+    tm = _recon_tm(F)
+    bm = 16 * tm
+    tiles = (_cdiv(F, bm), _cdiv(D, RECON_BN))
+    T = tiles[0] * tiles[1]
+    q, rem = _recon_pieces(T, _cdiv(K, _BK), n_sms)
+    s = q + (rem > 0)
+    g = _groups(F, s, n_sms)
+    pieces = _piece_bounds(K, q, rem)
+    units = T * s
+    if rem:
+        single, ranged = T * q, min(n_sms - T * q, T)
+    elif units <= n_sms:
+        single, ranged = units, 0
+    else:
+        single, ranged = 0, n_sms
+    return {"tile": (bm, RECON_BN), "thread_tile": (tm, RECON_TN), "threads": RECON_THREADS,
+            "stages": _RECON_STAGES[tm], "split": 1, "tiles": tiles, "long_pieces": q,
+            "rem_kb": rem, "pieces": s, "piece_bounds": pieces, "groups": g,
+            "k_bounds": tuple(pieces[r * s // g] for r in range(g + 1)),
+            "single_ctas": single, "range_ctas": ranged, "range_units": units - single,
+            "units": units, "grid": (single + ranged, 1, 1),
+            "workspace_floats": units * tm * RECON_TN * RECON_THREADS,
+            "smem_bytes": _recon_smem_bytes(tm)}
+
+
+def recon_units(plan: dict, cta: int) -> range:
+    """The units CTA ``cta`` of ``nmf_recon_plan`` computes, in order."""
+    single = plan["single_ctas"]
+    if cta < single:
+        return range(cta, cta + 1)
+    c, n, u = cta - single, plan["range_ctas"], plan["range_units"]
+    return range(single + c * u // n, single + (c + 1) * u // n)
+
+
+def recon_order(plan: dict) -> list[list[int]]:
+    """The order in which ``nmf_recon`` sums a tile's partials: for each
+    group, its pieces in order. The kernel folds each group from its first
+    piece (g = p₀ + p₁ + …, left to right), then the groups from the first."""
+    s, g = plan["pieces"], plan["groups"]
+    return [list(range(r * s // g, (r + 1) * s // g)) for r in range(g)]
 
 
 def _fused_smem_bytes(tf: int, stages: int, D: int) -> int:
@@ -122,8 +219,10 @@ def _fused_smem_bytes(tf: int, stages: int, D: int) -> int:
 def nmf_mu_fused_plan(F: int, K: int, D: int, n_sms: int) -> dict:
     """``nmf_mu_fused``'s launch plan: a cluster of ``split`` CTAs per tile of
     TF rows of F (32; 16 or 8 where D leaves the P tile too little room),
-    8·TF threads of 8 × 4 outputs each, grid (split, F tiles, 1). Raises
-    ValueError where even TF = 8 does not fit one block's shared memory."""
+    8·TF threads of 8 × 4 outputs each, grid (split, F tiles, 1). The split,
+    the K slices and the pieces inside them are ``nmf_recon_plan``'s groups
+    and pieces. Raises ValueError where even TF = 8 does not fit one block's
+    shared memory."""
     for tf, stages in _FUSED_TILES:
         smem = _fused_smem_bytes(tf, stages, D)
         if smem <= SMEM_LIMIT_BYTES:
@@ -131,9 +230,13 @@ def nmf_mu_fused_plan(F: int, K: int, D: int, n_sms: int) -> dict:
     else:
         raise ValueError(f"nmf_mu_fused: D = {D}: the P tile does not fit "
                          f"{SMEM_LIMIT_BYTES} B of shared memory")
-    split, bounds = _k_split(F, K, n_sms)
+    recon = nmf_recon_plan(F, K, D, n_sms)
+    split = recon["groups"]
     return {"tile": (tf, _FUSED_BN), "thread_tile": _THREAD_TILE, "threads": 8 * tf,
-            "stages": stages, "split": split, "cluster": (split, 1, 1), "k_bounds": bounds,
+            "stages": stages, "split": split, "cluster": (split, 1, 1),
+            "k_bounds": recon["k_bounds"], "long_pieces": recon["long_pieces"],
+            "rem_kb": recon["rem_kb"], "pieces": recon["pieces"],
+            "piece_bounds": recon["piece_bounds"], "groups": split,
             "grid": (split, _cdiv(F, tf), 1), "smem_bytes": smem}
 
 
@@ -151,31 +254,40 @@ def nmf_update_plan(F: int, K: int, D: int, n_sms: int) -> dict:
             "smem_bytes": 4 * _UPDATE_STAGES * _BK * (bm + 4 + bn + 4)}
 
 
+_PIECE_FIELDS = ("long_pieces", "rem_kb", "pieces", "groups")
+_RECON_FIELDS = ("single_ctas", "range_ctas", "range_units")
+
+
 class _Plan(ctypes.Structure):
     """``EvcPlan`` of ``csrc/nmf_mu.cu``."""
     _fields_ = [*((name, ctypes.c_int) for name in ("bm", "bn", "threads", "stages", "split",
                                                      "grid_x", "grid_y", "grid_z",
                                                      "smem_bytes")),
-                ("k_bounds", ctypes.c_int * (MAX_CLUSTER + 1))]
+                ("k_bounds", ctypes.c_int * (MAX_CLUSTER + 1)),
+                *((name, ctypes.c_int) for name in (*_PIECE_FIELDS, *_RECON_FIELDS,
+                                                     "tiles_f", "tiles_d"))]
 
 
 def _pack(plan: dict) -> _Plan:
     # bounds past the struct's room are dropped: the C entry refuses such a
-    # split before it reads them. A plan without a split (nmf_update) packs
-    # split 1 and bounds that the C entry does not read.
+    # split before it reads them. A plan without pieces (nmf_update) packs
+    # split 1, one piece and bounds that the C entry does not read.
     bounds = list(plan.get("k_bounds", (0,)))[:MAX_CLUSTER + 1]
     bounds += [bounds[-1]] * (MAX_CLUSTER + 1 - len(bounds))
+    defaults = {"long_pieces": 1, "pieces": 1, "groups": 1}
     return _Plan(*plan["tile"], plan["threads"], plan["stages"], plan.get("split", 1),
-                 *plan["grid"],
-                 plan["smem_bytes"], (ctypes.c_int * (MAX_CLUSTER + 1))(*bounds))
+                 *plan["grid"], plan["smem_bytes"],
+                 (ctypes.c_int * (MAX_CLUSTER + 1))(*bounds),
+                 *(plan.get(k, defaults.get(k, 0)) for k in (*_PIECE_FIELDS, *_RECON_FIELDS)),
+                 *plan.get("tiles", (0, 0)))
 
 
 def co_resident_clusters(kernel: str, plan: dict, F: int, K: int, D: int) -> int:
     """How many clusters of ``plan`` the current card holds at once, for
-    ``kernel`` "nmf_recon", "nmf_mu_fused" or "nmf_update" (no cluster: its
-    CTAs, CTAs an SM times the SMs, as the occupancy query reports them). The
-    C entry checks the plan as for a launch and raises where it would refuse
-    it."""
+    ``kernel`` "nmf_recon", "nmf_mu_fused" or "nmf_update" (the recon and
+    the update have no cluster: their CTAs, CTAs an SM times the SMs, as the
+    occupancy query reports them). The C entry checks the plan as for a
+    launch and raises where it would refuse it."""
     name = {"nmf_recon": "evc_nmf_recon_clusters",
             "nmf_mu_fused": "evc_nmf_fused_mu_clusters",
             "nmf_update": "evc_nmf_update_clusters"}[kernel]
@@ -191,8 +303,9 @@ _PLANS = {"nmf_recon": nmf_recon_plan, "nmf_update": nmf_update_plan,
 
 
 @lru_cache(maxsize=64)
-def _default_plan(kernel: str, F: int, K: int, D: int, n_sms: int) -> _Plan:
-    return _pack(_PLANS[kernel](F, K, D, n_sms))
+def _default_plan(kernel: str, F: int, K: int, D: int, n_sms: int) -> tuple[_Plan, int]:
+    plan = _PLANS[kernel](F, K, D, n_sms)
+    return _pack(plan), plan.get("workspace_floats", 0)
 
 
 @lru_cache(maxsize=8)
@@ -202,6 +315,27 @@ def _n_sms(index: int) -> int:
 
 def _sms(device: torch.device) -> int:
     return _n_sms(device.index if device.index is not None else torch.cuda.current_device())
+
+
+# the recon's partial tiles. Launches on one stream run in order, so each may
+# reuse the buffer its predecessor wrote: one buffer of _WS_KEPT floats (16
+# MiB) is kept a (device, stream). A torch.empty a call costs ~6 µs of host
+# on an H100 machine, and a stream chunk's recon is host-bound (~30 µs a
+# call for a 14 µs kernel). A larger workspace (F in the thousands, a
+# kernel of a millisecond or more) is allocated for its call. Two threads
+# racing here each get a valid buffer.
+_WS_KEPT = 1 << 22
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int) -> torch.Tensor:
+    if floats > _WS_KEPT:
+        return torch.empty(floats, dtype=torch.float32, device=device)
+    ws = _workspaces.get((device.index, stream))
+    if ws is None:
+        ws = torch.empty(_WS_KEPT, dtype=torch.float32, device=device)
+        _workspaces[(device.index, stream)] = ws
+    return ws
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +350,9 @@ def nmf_recon_plain(H: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
 def nmf_recon(H: torch.Tensor, A: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
     """Reconstruction P = H·A; on CUDA through ``evc_nmf_recon`` (counted in
     ``nmf_recon.launches``) with ``plan`` (default ``nmf_recon_plan`` for the
-    shape and the card); a plan the card cannot launch raises RuntimeError."""
+    shape and the card); a plan the card cannot launch raises RuntimeError.
+    The partial tiles go to the workspace kept for the current stream
+    (``_workspace``)."""
     if H.device.type == "cpu":
         return nmf_recon_plain(H, A)
     if H.device.type != "cuda":
@@ -225,15 +361,21 @@ def nmf_recon(H: torch.Tensor, A: torch.Tensor, plan: dict | None = None) -> tor
     D = A.shape[1]
     _check_f32("H", H, (F, K), H.device)
     _check_f32("A", A, (K, D), H.device)
-    packed = (_default_plan("nmf_recon", F, K, D, _sms(H.device)) if plan is None
-              else _pack(plan))
     P = torch.empty((F, D), dtype=torch.float32, device=H.device)
+    if F == 0 or D == 0:
+        return P
+    if plan is None:
+        packed, ws_floats = _default_plan("nmf_recon", F, K, D, _sms(H.device))
+    else:
+        packed, ws_floats = _pack(plan), plan["workspace_floats"]
     vp, ci = ctypes.c_void_p, ctypes.c_int
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream(H.device).cuda_stream
-        _launch("evc_nmf_recon", [vp, vp, vp, ci, ci, ci, ctypes.POINTER(_Plan), vp],
-                H.data_ptr(), A.data_ptr(), P.data_ptr(), F, K, D, ctypes.byref(packed),
-                stream)
+        ws = _workspace(H.device, stream, ws_floats)
+        _launch("evc_nmf_recon",
+                [vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, ctypes.POINTER(_Plan), vp],
+                H.data_ptr(), A.data_ptr(), P.data_ptr(), ws.data_ptr(), ws.numel(), F, K, D,
+                ctypes.byref(packed), stream)
     nmf_recon.launches += 1
     return P
 
@@ -277,7 +419,7 @@ def nmf_update(P: torch.Tensor, A: torch.Tensor, H: torch.Tensor,
         out = torch.empty_like(H)
     else:
         _check_f32("out", out, (F, K), H.device)
-    packed = (_default_plan("nmf_update", F, K, D, _sms(H.device)) if plan is None
+    packed = (_default_plan("nmf_update", F, K, D, _sms(H.device))[0] if plan is None
               else _pack(plan))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     with torch.cuda.device(H.device):
@@ -334,7 +476,7 @@ def nmf_mu_fused(H: torch.Tensor, A: torch.Tensor, Num: torch.Tensor, l1: float 
         out = torch.empty_like(H)
     else:
         _check_f32("out", out, (F, K), H.device)
-    packed = (_default_plan("nmf_mu_fused", F, K, D, _sms(H.device)) if plan is None
+    packed = (_default_plan("nmf_mu_fused", F, K, D, _sms(H.device))[0] if plan is None
               else _pack(plan))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     with torch.cuda.device(H.device):

@@ -271,11 +271,16 @@ def test_dtw_plan_that_cannot_cover_ta_raises(cuda, monkeypatch):
 # K rows than the split, one K row past a slice boundary, one column, a
 # ragged 128-column tile
 NMF_EDGES = [(1, 130, 25), (689, 7681, 201), (33, 3, 25), (100, 700, 1), (100, 700, 300)]
+# the served recon shapes (K = 14,336: a stream chunk, requests at D = 201 and
+# 1025, the longest request), and an edge of their tiling: K = 14,335 ends
+# inside the last unit's last slice (and, K % 4 != 0, takes H in 4-byte copies)
+NMF_SERVED = [(16, 14_336, 201), (620, 14_336, 201), (620, 14_336, 1025),
+              (1360, 14_336, 1025), (620, 14_335, 1025)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F,K,D", [(33, 130, 25), (100, 700, 201), (688, 7680, 201),
-                                   *NMF_EDGES])
+                                   *NMF_EDGES, *NMF_SERVED])
 def test_nmf_kernels_match_twins(cuda, F, K, D):
     rng = np.random.default_rng(F)
     A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
@@ -285,7 +290,9 @@ def test_nmf_kernels_match_twins(cuda, F, K, D):
     H = torch.as_tensor(rng.uniform(0, 0.05, (F, K)).astype(np.float32), device=cuda)
     Num = X @ A.T
     P = nmf_cuda.nmf_recon_plain(H, A)
-    assert _rel(nmf_cuda.nmf_recon(H, A), P) <= 1e-5
+    got = nmf_cuda.nmf_recon(H, A)
+    assert _rel(got, P) <= 1e-5
+    assert torch.equal(got, nmf_cuda.nmf_recon(H, A))   # no atomics: the same bits
     for l1 in (0.0, 0.3):
         ref = nmf_cuda.nmf_update_plain(P, A, H, Num, l1)
         assert _rel(nmf_cuda.nmf_update(P, A, H, Num, l1), ref) <= 1e-5
@@ -402,11 +409,12 @@ def _nmf_inputs(F, K, D, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("F,K,D", [(688, 7680, 201), (689, 7681, 300), (65, 1030, 520)])
+@pytest.mark.parametrize("F,K,D", [(688, 7680, 201), (689, 7681, 300), (65, 1030, 520),
+                                   (16, 14_336, 201), (620, 14_336, 1025)])
 def test_nmf_split_k_kernels_are_deterministic(cuda, F, K, D):
     """No atomics: repeated launches give equal bits, and the fused iteration
-    equals recon + update bit for bit (both sum P over the same K slices, and
-    den over d ascending from zero)."""
+    equals recon + update bit for bit (both sum P over the same K pieces, in
+    the recon's groups, and den over d ascending from zero)."""
     A, H, Num = _nmf_inputs(F, K, D, cuda)
     P = nmf_cuda.nmf_recon(H, A)
     assert torch.equal(P, nmf_cuda.nmf_recon(H, A))
@@ -418,12 +426,41 @@ def test_nmf_split_k_kernels_are_deterministic(cuda, F, K, D):
 
 
 @pytest.mark.cuda
+def test_nmf_recon_keeps_one_workspace_a_stream(cuda):
+    """Recons on one stream reuse one kept workspace, another stream keeps
+    its own, and a workspace past the kept size (1360 x 14,336 x 1025) is
+    allocated for its call and kept by no one; every answer is the same."""
+    A, H, _ = _nmf_inputs(16, 14_336, 201, cuda)
+    P = nmf_cuda.nmf_recon(H, A)
+    key = (H.device.index, torch.cuda.current_stream(cuda).cuda_stream)
+    ws = nmf_cuda._workspaces[key]
+    assert torch.equal(nmf_cuda.nmf_recon(H, A), P) and nmf_cuda._workspaces[key] is ws
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        Ps = nmf_cuda.nmf_recon(H, A)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert nmf_cuda._workspaces[(H.device.index, side.cuda_stream)] is not ws
+    assert torch.equal(Ps, P)
+    A, H, _ = _nmf_inputs(1360, 14_336, 1025, cuda)
+    plan = nmf_cuda.nmf_recon_plan(1360, 14_336, 1025, nmf_cuda._sms(cuda))
+    assert plan["workspace_floats"] > nmf_cuda._WS_KEPT
+    kept = dict(nmf_cuda._workspaces)
+    Pb = nmf_cuda.nmf_recon(H, A)
+    assert nmf_cuda._workspaces.keys() == kept.keys()
+    assert all(nmf_cuda._workspaces[k] is v for k, v in kept.items())
+    assert _rel(Pb, nmf_cuda.nmf_recon_plain(H, A)) <= 1e-5
+    assert torch.equal(Pb, nmf_cuda.nmf_recon(H, A))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["nmf_recon", "nmf_mu_fused", "nmf_update"])
 @pytest.mark.parametrize("fault", ["cluster", "smem", "tile"])
 def test_nmf_plan_that_cannot_launch_raises(cuda, kernel, fault):
-    """A cluster above the portable 8 (for the update, any cluster), shared
-    memory above the opt-in limit or a tile the source does not compile is
-    refused before any launch."""
+    """A cluster above the portable 8 (for the update, any cluster; for the
+    recon, whose CTAs meet at a grid barrier, more CTAs than the card holds
+    at once), shared memory above the opt-in limit or a tile the source does
+    not compile is refused before any launch."""
     F, K, D = 100, 700, 201
     A, H, Num = _nmf_inputs(F, K, D, cuda)
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -431,6 +468,10 @@ def test_nmf_plan_that_cannot_launch_raises(cuda, kernel, fault):
             "nmf_update": nmf_cuda.nmf_update_plan}[kernel](F, K, D, n_sms)
     if fault == "cluster" and kernel == "nmf_update":
         plan = dict(plan, split=2)
+    elif fault == "cluster" and kernel == "nmf_recon":
+        ctas = 4 * n_sms   # one CTA an SM fits: four do not
+        plan = dict(plan, single_ctas=0, range_ctas=ctas, range_units=plan["units"],
+                    grid=(ctas, 1, 1))
     elif fault == "cluster":
         plan = dict(plan, split=9, cluster=(9, 1, 1), grid=(9, *plan["grid"][1:]),
                     k_bounds=tuple(range(0, 9 * 64, 64)) + (K,))
