@@ -36,7 +36,8 @@ Phases (any failure exits non-zero and prints no result line):
    time, and at the WORLD path's solve F = 688, K = 6144, D = 513 (the same
    gates, timed, with bound, share and ``torch.matmul``'s time); ``nmf_recon``
    at the benchmark cells' shapes, K = 14,336 and F × D = 16 × 201 (its
-   16-row tile), 620 × 201 and 620 × 1025 (its 128-row tile), within 1e-5 of
+   16-row tile), 620 × 201 and 620 × 1025 (its 128-row tile), and the
+   quality preset's K = 71,680 at 620 × 201 and 1360 × 201, within 1e-5 of
    its twin, two launches equal bit for bit, the device time of 20 launches
    beside ``torch.matmul``'s and the bound, with each shape's plan tile; with the
    launch plans of the persistent split-K ``nmf_recon`` (CTAs, tile, units,
@@ -92,8 +93,13 @@ Phases (any failure exits non-zero and prints no result line):
    magnitude and on the audio after 10 Griffin-Lim iterations; the audio
    after 300 is reported (the iterations grow the float32 rounding
    difference between a stacked and a single solve). A ``Converter`` from
-   ``load_config(preset="quality")`` (KL, plain torch products by design,
-   ``h_smooth=2``) converts the held-out utterance: finite stand-in MCD. The
+   ``load_config(preset="quality")`` (KL, its reconstruction on
+   ``nmf_recon`` and the rest plain torch, ``h_smooth=2``) converts the
+   held-out utterance: finite stand-in MCD, and the solve launches
+   ``nmf_recon`` 1 + n_iter times and nothing else of the MU kernels; then
+   at its served width, a ``Converter`` of the preset on the benchmark's
+   20-pair corpus at ``nb_file=20`` (K must be 71,680) converts it, timed,
+   under the same launch gate. The
    bfloat16 solve (plain torch by design) runs once beside the float32 one.
    A ``StreamingConverter`` on the Frobenius dictionaries takes the held-out
    |STFT| in chunks of 16 frames with its phase (context 32, 60 Griffin-Lim
@@ -336,6 +342,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 
 def fail(msg: str) -> None:
@@ -592,10 +599,12 @@ def nmf_world_shape(torch, np, dev, rng, n_sms) -> dict:
 
 
 def nmf_recon_served(torch, np, dev, rng, n_sms) -> dict:
-    """``nmf_recon`` at the benchmark cells' shapes over the 14,336-exemplar
-    dictionary: a stream chunk (F = 16, D = 201: the TM = 1 tile), a
+    """``nmf_recon`` at the benchmark cells' shapes: over the 14,336-exemplar
+    dictionary a stream chunk (F = 16, D = 201: the TM = 1 tile), a
     request on the STFT path (F = 620, D = 201) and on the WORLD path (F =
-    620, D = 1025), both TM = 8. Each is held within 1e-5 relative of its
+    620, D = 1025), both TM = 8; over the quality preset's 71,680 (the
+    dictionary and its four VTLP copies) a request of F = 620 and the
+    longest, F = 1360, at D = 201. Each is held within 1e-5 relative of its
     twin, two launches must give equal bits, and each is timed by the
     profiler's device time of 20 back-to-back launches (median of 3
     readings) beside ``torch.matmul`` and the bound."""
@@ -611,8 +620,8 @@ def nmf_recon_served(torch, np, dev, rng, n_sms) -> dict:
                                  for _ in range(reps))
 
     out = {}
-    K = 14_336
-    for F, D in ((16, 201), (620, 201), (620, 1025)):
+    for F, K, D in ((16, 14_336, 201), (620, 14_336, 201), (620, 14_336, 1025),
+                    (620, 71_680, 201), (1360, 71_680, 201)):
         pl = nmf_recon_plan(F, K, D, n_sms)
         A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
         A[K - 300:] = 0.0
@@ -1339,6 +1348,13 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
         if audio.shape != x.shape or not np.isfinite(audio).all():
             fail(f"serving: {what}: audio shape {audio.shape} vs input {x.shape}, or not finite")
 
+    def kl_solve_gate(after, before, n_iter, where):
+        # one recon a step and one for the first error, no update or fused kernel
+        moved = {name: after[name] - before[name] for name in after}
+        if moved["nmf_recon"] != 1 + n_iter or moved["nmf_update"] or \
+                any(moved[name] for name in fused):
+            fail(f"serving: the KL solve {where} ran {n_iter} steps and launched {moved}")
+
     convert_mod._DICTS_MEMO.clear()
     for fn in all_fns.values():
         fn.launches = 0
@@ -1437,13 +1453,15 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
         f"kernel): n_iter {bf.nmf_iters}, error {bf.nmf_error:.6g} against float32's "
         f"{first.nmf_error:.6g}; warm wall median {statistics.median(bf_walls):.4f} ms")
 
-    # the quality preset: KL (plain torch by design), the same warps, h_smooth=2
-    before = counts()
+    # the quality preset: KL (its P from nmf_recon, the rest plain torch by
+    # design), the same warps, h_smooth=2
     conv_q, q_prepare_ms = timed(lambda: Converter(cfg_quality, store, data, nb_file=8,
                                                    device=dev))
     if built() != prepared or conv_q.dicts["stft"][0].shape[0] != 30_720:
         fail("serving: the quality preset shares the warped dictionaries and must not rebuild")
+    before = counts()
     q, q_first_ms = timed(lambda: conv_q.convert(src))
+    kl_solve_gate(counts(), before, q.nmf_iters, "at K = 30,720")
     q_walls = [timed(lambda: conv_q.convert(src))[1] for _ in range(3)]
     check_audio("quality convert", q.audio, sigs[0])
     qb = conv_q.convert_batch(paths[:2])
@@ -1452,9 +1470,7 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     ref_sig, _ = read_wav(tar)
     mcd_q = mcd_between_signals(q.audio, ref_sig, cfg_quality, dev)
     mcd_f = mcd_between_signals(first.audio, ref_sig, cfg_frob, dev)
-    if counts()["nmf_recon"] != before["nmf_recon"]:
-        fail("serving: the KL solve launched the Frobenius kernels")
-    say(f"serving: quality preset (KL, plain torch products by design; 4 warps; h_smooth=2): "
+    say(f"serving: quality preset (KL on nmf_recon, the rest plain torch; 4 warps; h_smooth=2): "
         f"prepare {q_prepare_ms:.2f} ms (memoised dictionaries), n_iter {q.nmf_iters}, first "
         f"call {q_first_ms:.2f} ms, warm wall median {statistics.median(q_walls):.4f} ms")
     say(f"serving: stand-in preset MCD {mcd_q:.4f} dB; Frobenius + 4 warps {mcd_f:.4f} dB; the "
@@ -1462,6 +1478,30 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
         f"real corpus's figures)")
     if not (np.isfinite(mcd_q) and np.isfinite(mcd_f)):
         fail(f"serving: MCD {mcd_q}, {mcd_f}")
+
+    # the quality preset at its served width: the benchmark's 20-pair corpus,
+    # nb_file=20, K = 71,680 (stft-quality.serve's configuration)
+    from benchmark.harness.bench import build_corpus
+
+    recipe = json.loads((Path(__file__).resolve().parent / "benchmark" / "configs"
+                         / "vcc2016-sf1-tf1-stft-quality.json").read_text())
+    data20 = build_corpus(recipe, os.path.join(root, "quality20"))
+    cfg_q20 = load_config(preset="quality", overrides=["data.tar=TF1", "misc.nb_file=20"])
+    conv_q20, q20_prepare_ms = timed(lambda: Converter(
+        cfg_q20, ArtifactStore(os.path.join(root, "store_quality20")), data20, nb_file=20,
+        device=dev))
+    K20 = conv_q20.dicts["stft"][0].shape[0]
+    if K20 != 71_680:
+        fail(f"serving: the quality preset over 20 pairs has K = {K20}, not 71,680")
+    before = counts()
+    q20, q20_first_ms = timed(lambda: conv_q20.convert(src))
+    kl_solve_gate(counts(), before, q20.nmf_iters, "at K = 71,680")
+    check_audio("quality convert at K = 71,680", q20.audio, sigs[0])
+    q20_walls = [timed(lambda: conv_q20.convert(src))[1] for _ in range(3)]
+    say(f"serving: quality preset at its served width, 20 pairs: K = {K20}, prepare "
+        f"{q20_prepare_ms:.2f} ms, n_iter {q20.nmf_iters} ({1 + q20.nmf_iters} recons), first "
+        f"call {q20_first_ms:.2f} ms, warm wall median {statistics.median(q20_walls):.4f} ms")
+    del conv_q20
 
     # streaming on the Frobenius dictionaries
     S = extract_stft_complex(sigs[0], cfg_frob, dev)

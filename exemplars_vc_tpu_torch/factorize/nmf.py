@@ -18,9 +18,11 @@ Frobenius update runs through :mod:`exemplars_vc_tpu_torch.factorize.nmf_cuda`
 ``nmf_activations_pallas(fused=True)``). The error check's recon is carried
 into the next update: H does not change between a check and the step after
 it, and the recon kernel sums in one order, so that P has the same bits. A
-solve therefore takes 1 + n_iter recons. KL stays plain torch (the JAX
-package has no kernel for it), and so does the ``work_dtype`` solve, which
-stores H, A and the numerator in bfloat16 and accumulates products in
+solve therefore takes 1 + n_iter recons. The KL solve takes its P from the
+same recon, carried the same way; the rest of its step (X ⊘ P, the product
+with Aᵀ on cuBLAS, the division and the update, in place) is plain torch,
+since the JAX package has no kernel for it. So is the ``work_dtype`` solve,
+which stores H, A and the numerator in bfloat16 and accumulates products in
 float32 (in the JAX package it is XLA outside any Pallas kernel).
 
 :func:`prune_topk_refine` and :func:`sharpen_activations` are the two
@@ -186,13 +188,18 @@ def nmf_activations(X: torch.Tensor, A: torch.Tensor, beta_loss: str = "frobeniu
                              "(the JAX package has no fused KL kernel)")
         den = A.sum(dim=1)[None, :] + l1
         den = torch.where(den == 0.0, EPS, den)
+        G = torch.empty((F, K), dtype=torch.float32, device=X.device)
+        checked = []          # the last check's P; H has not changed since
 
         def step(H):
-            ratio = X / torch.clamp(H @ A, min=EPS)
-            return H * ((ratio @ A.T) / den)
+            # H ⊙ ((X ⊘ P)·Aᵀ ⊘ den) in that order, in place: no F × K temporary
+            P = checked.pop() if checked else nmf_recon(H, A)
+            torch.mm(X / torch.clamp(P, min=EPS), A.T, out=G)
+            return H.mul_(G.div_(den))
 
         def error(H):
-            return _kl_error(X, H @ A)
+            checked[:] = [nmf_recon(H, A)]
+            return _kl_error(X, checked[0])
     else:
         raise ValueError(f"unknown beta_loss {beta_loss!r}")
 

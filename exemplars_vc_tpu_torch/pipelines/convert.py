@@ -124,12 +124,20 @@ def _preprocess_frames(X: torch.Tensor, cfg: Config) -> torch.Tensor:
 
 
 def _smooth_h(H: torch.Tensor, s: int) -> torch.Tensor:
-    """Edge-clamped box filter of width 2s + 1 along time (``nmf.h_smooth``)."""
+    """Edge-clamped box filter of width 2s + 1 along time (``nmf.h_smooth``),
+    in the ``h_smooth`` span (F, K and s)."""
     if s <= 0:
         return H
     F = H.shape[0]
-    base = torch.arange(F, device=H.device)
-    return sum(H[(base + d).clamp(0, F - 1)] for d in range(-s, s + 1)) / (2 * s + 1)
+    with Timer(H.device, name="h_smooth", F=F, K=H.shape[1], s=s):
+        # the rows d = -s … s added in that order into one buffer through one
+        # more: two F × K allocations, where a sum of gathers makes 2s + 2
+        base = torch.arange(F, device=H.device)
+        out = H.index_select(0, (base - s).clamp(0, F - 1))
+        row = torch.empty_like(H)
+        for d in range(-s + 1, s + 1):
+            out.add_(torch.index_select(H, 0, (base + d).clamp(0, F - 1), out=row))
+        return out.div_(2 * s + 1)
 
 
 def _solve_activations(X: torch.Tensor, A: torch.Tensor, cfg: Config,
@@ -143,7 +151,8 @@ def _solve_activations(X: torch.Tensor, A: torch.Tensor, cfg: Config,
     its own width. ``nmf.normalize_exemplars`` solves on unit-L2 atoms and
     returns H in the unnormalised basis. After the solve:
     ``nmf.prune_topk``, ``nmf.activation_power``, ``nmf.h_smooth``. The
-    solver runs in the ``nmf`` span (F, K, D and n_iter of the solve)."""
+    solver runs in the ``nmf`` span (F, K, D and n_iter of the solve, and
+    ``beta``, the loss it minimised: "kl" or "frobenius")."""
     n = cfg.nmf
     c = n.context_frames
     if n.solve_domain == "mel" and A.shape[1] > n.solve_mels:
@@ -161,7 +170,9 @@ def _solve_activations(X: torch.Tensor, A: torch.Tensor, cfg: Config,
         # numerator column is 0, and its H column is 0 after the first step
         s = torch.clamp(torch.sqrt(torch.sum(A * A, dim=1)), min=1e-12)
         A_solve = A / s[:, None]
-    with Timer(X.device, name="nmf", F=X.shape[0], K=A.shape[0], D=A.shape[1]) as t:
+    kl = n.solver in ("auto", "mu") and n.beta_loss in ("kullback-leibler", "kl")
+    with Timer(X.device, name="nmf", F=X.shape[0], K=A.shape[0], D=A.shape[1],
+               beta="kl" if kl else "frobenius") as t:
         st = _dispatch_solver(X, A_solve, cfg)
         t.attrs["n_iter"] = st.n_iter
     if n.normalize_exemplars:
@@ -359,7 +370,8 @@ def _aligned_dicts(cfg: Config, store: ArtifactStore, data_path: str,
     ``data.dict_hop_divisor > 1`` builds only the dictionary side (alignment
     and features) at hop ÷ divisor; ``data.dict_prune_frac`` zeroes the
     worst-aligned pairs; ``data.dict_augment_warps`` appends VTLP-warped
-    copies. A repeated call with the same arguments returns the memoised
+    copies (in the ``dict.augment`` span: the K they make, the warps). A
+    repeated call with the same arguments returns the memoised
     tensors; ``_aligned_dicts.builds`` counts the calls that built."""
     # cfg.misc is part of the key: with nb_file=None the file count comes
     # from cfg.misc.nb_file, and misc.cpu_rate changes the loaded audio
@@ -396,7 +408,8 @@ def _aligned_dicts(cfg: Config, store: ArtifactStore, data_path: str,
         dicts[name] = (A, B)
     warps = _parse_warps(cfg.data.dict_augment_warps)
     if warps:
-        dicts = _augment_dicts(dicts, warps)
+        with Timer(device, name="dict.augment", K=(1 + len(warps)) * k_pad, warps=warps):
+            dicts = _augment_dicts(dicts, warps)
     if len(_DICTS_MEMO) >= _DICTS_MEMO_MAX:
         _DICTS_MEMO.pop(next(iter(_DICTS_MEMO)))
     _DICTS_MEMO[memo_key] = (dicts, src_feats.kind)

@@ -453,6 +453,48 @@ def test_nmf_recon_keeps_one_workspace_a_stream(cuda):
     assert torch.equal(Pb, nmf_cuda.nmf_recon(H, A))
 
 
+# the quality preset's recon: K = 71,680 (the padded 20-pair dictionary and
+# its four VTLP copies, each block ending in zero rows) at D = 201, for a
+# 3.9 s request and for the longest, 6.8 s
+NMF_QUALITY = [(620, 71_680, 201), (1360, 71_680, 201)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,K,D", NMF_QUALITY)
+def test_nmf_recon_at_the_quality_shapes(cuda, F, K, D):
+    A, H, _ = _nmf_inputs(F, K, D, cuda)
+    A.view(5, K // 5, D)[:, -393:] = 0.0
+    P = nmf_cuda.nmf_recon(H, A)
+    assert _rel(P, nmf_cuda.nmf_recon_plain(H, A)) <= 1e-5
+    assert torch.equal(P, nmf_cuda.nmf_recon(H, A))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol,max_iter", [(0.0, 30), (1e-4, 150)])
+def test_kl_solve_takes_its_recon_from_the_kernel(cuda, monkeypatch, tol, max_iter):
+    """The KL solve launches ``nmf_recon`` 1 + n_iter times (a check's P
+    feeds the next step) and ``nmf_update`` never. With the tolerance off
+    its H agrees with the same solve on cuBLAS products (the recon swapped
+    for its twin) within 1e-4 relative L2: each recon is within 1e-5 of
+    its twin, and 30 multiplicative steps carry that along."""
+    from exemplars_vc_tpu_torch.factorize import nmf
+
+    A, _, _ = _nmf_inputs(200, 7168, 201, cuda)
+    A[-300:] = 0.0
+    rng = np.random.default_rng(3)
+    X = torch.as_tensor(np.abs(rng.standard_normal((200, 201))).astype(np.float32), device=cuda)
+    recons, updates = nmf_cuda.nmf_recon.launches, nmf_cuda.nmf_update.launches
+    st = nmf.nmf_activations(X, A, beta_loss="kl", tol=tol, max_iter=max_iter)
+    assert nmf_cuda.nmf_recon.launches - recons == 1 + st.n_iter
+    assert nmf_cuda.nmf_update.launches == updates
+    assert bool(torch.isfinite(st.H).all()) and bool((st.H >= 0).all())
+    if tol == 0.0:
+        monkeypatch.setattr(nmf, "nmf_recon", nmf_cuda.nmf_recon_plain)
+        ref = nmf.nmf_activations(X, A, beta_loss="kl", tol=tol, max_iter=max_iter)
+        assert st.n_iter == ref.n_iter == max_iter
+        assert float(torch.linalg.norm(st.H - ref.H) / torch.linalg.norm(ref.H)) <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["nmf_recon", "nmf_mu_fused", "nmf_update"])
 @pytest.mark.parametrize("fault", ["cluster", "smem", "tile"])
@@ -695,3 +737,28 @@ def test_a_new_griffin_lim_length_records_a_capture_span(cuda):
     assert [s["name"] for s in first] == ["griffin_lim.capture"] * 3
     assert all(s["host_ms"] > 0.0 and s["device_ms"] is not None for s in first)
     assert _traced_spans(lambda: griffin_lim(mag, n_iter=n_iter, init_phase=S)) == []
+
+
+@pytest.mark.cuda
+def test_quality_spans_on_the_card(cuda, tmp_path):
+    """A conversion under the quality preset on the card: its ``nmf`` span
+    says it solved KL and made 1 + n_iter recons, and the ``h_smooth``
+    span sits in its ``solve`` with a device time within the solve's."""
+    from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.io.store import ArtifactStore
+    from exemplars_vc_tpu_torch.pipelines.serve import Converter
+    from torch_corpus import OVERRIDES, write_synthetic_corpus
+
+    data, src, _ = write_synthetic_corpus(tmp_path / "corpus")
+    conv = Converter(load_config(preset="quality", overrides=OVERRIDES),
+                     ArtifactStore(str(tmp_path / "store")), data, nb_file=3, device=cuda)
+    recons = nmf_cuda.nmf_recon.launches
+    recs = _traced_spans(lambda: conv.convert(src, synth_iters=20))
+    (nmf,) = [s for s in recs if s["name"] == "nmf"]
+    (solve,) = [s for s in recs if s["name"] == "solve"]
+    (smooth,) = [s for s in recs if s["name"] == "h_smooth"]
+    assert nmf["attrs"]["beta"] == "kl"
+    assert nmf_cuda.nmf_recon.launches - recons == 1 + nmf["attrs"]["n_iter"]
+    assert smooth["parent"] == solve["id"] and smooth["attrs"]["s"] == 2
+    assert smooth["attrs"]["K"] == conv.dicts["stft"][0].shape[0] == nmf["attrs"]["K"]
+    assert 0.0 <= smooth["device_ms"] <= solve["device_ms"]

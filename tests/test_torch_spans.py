@@ -4,7 +4,10 @@ CPU, on the synthetic corpus of ``torch_corpus``: nothing is recorded
 without a profiler; ``Converter.convert`` (STFT and WORLD),
 ``StreamingConverter.push``, ``analyze`` and ``convert_utterance`` record
 the spans their docstrings name, with their parent and root ids; the
-``nmf`` spans' steps sum to the conversion's; the exported Chrome trace
+``nmf`` spans' steps sum to the conversion's, and each names the loss it
+solved (``beta``); the quality preset's ``h_smooth`` span sits in its
+``solve``, and a dictionary's preparation records ``dict.augment``; the
+exported Chrome trace
 holds one ``user_annotation`` per span with the same names and nesting;
 the audio is bit-equal with and without the profiler; threads keep their
 own trees; the log keeps its bound. The device times are checked on the
@@ -134,6 +137,41 @@ def test_push_records_its_spans(converters, corpus):
         assert nmf["attrs"]["F"] == CHUNK and 1 <= nmf["attrs"]["n_iter"] <= 20
         assert not _children(recs, synth)
     assert len(recs) == 4 * len(roots)
+
+
+@pytest.mark.parametrize("over,beta", [([], "frobenius"),
+                                       (["nmf.beta_loss=kullback-leibler"], "kl"),
+                                       (["nmf.beta_loss=kullback-leibler", "nmf.solver=cd"],
+                                        "frobenius")], ids=["frobenius", "kl", "kl-asked-of-cd"])
+def test_nmf_span_names_the_loss_it_solved(over, beta, corpus, tmp_path):
+    conv = Converter(load_config(overrides=OVERRIDES + over), ArtifactStore(str(tmp_path)),
+                     corpus[0], nb_file=3, device="cpu")
+    _, recs = _traced(lambda: conv.convert(corpus[1], synth_iters=SYNTH_ITERS))
+    (nmf,) = [s for s in recs if s["name"] == "nmf"]
+    assert nmf["attrs"]["beta"] == beta
+    assert set(nmf["attrs"]) == {"F", "K", "D", "n_iter", "beta"}
+
+
+def test_quality_preset_records_h_smooth_under_solve(corpus, tmp_path):
+    conv = Converter(load_config(preset="quality", overrides=OVERRIDES),
+                     ArtifactStore(str(tmp_path)), corpus[0], nb_file=3, device="cpu")
+    _, recs = _traced(lambda: conv.convert(corpus[1], synth_iters=SYNTH_ITERS))
+    (solve,) = [s for s in recs if s["name"] == "solve"]
+    nmf, smooth = _children(recs, solve)
+    assert (nmf["name"], smooth["name"]) == ("nmf", "h_smooth")
+    assert nmf["attrs"]["beta"] == "kl"
+    assert smooth["attrs"] == {"F": nmf["attrs"]["F"], "K": nmf["attrs"]["K"], "s": 2}
+    assert smooth["root"] == solve["root"] and not _children(recs, smooth)
+
+
+def test_preparation_records_dict_augment(corpus, tmp_path):
+    cfg = load_config(overrides=OVERRIDES + ["data.dict_augment_warps=0.9,1.1"])
+    conv, recs = _traced(lambda: Converter(cfg, ArtifactStore(str(tmp_path)), corpus[0],
+                                           nb_file=3, device="cpu"))
+    (aug,) = [s for s in recs if s["name"] == "dict.augment"]
+    assert aug["parent"] is None
+    assert aug["attrs"] == {"K": conv.dicts["stft"][0].shape[0], "warps": (0.9, 1.1)}
+    assert conv.dicts["stft"][0].shape[0] % (3 * 512) == 0
 
 
 def test_analyze_records_its_three_spans(corpus):
