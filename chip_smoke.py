@@ -53,21 +53,35 @@ Phases (any failure exits non-zero and prints no result line):
    element-wise max is reported, not gated; two other tiles bit-equal to
    the plan's. Timed at 300 iterations beside its twin, the graphed cuFFT
    yardstick (``gl_yardstick``, its ``library_ms``), the production
-   ``griffin_lim`` graphed and eager, and the grid-sync floor;
+   ``griffin_lim`` (the centered kernel) and its eager loop, and the
+   grid-sync floor. The centered kernel (``center=True``, the production's
+   projection) at the served shapes 620 and 1361 × 201 and the stream's 48
+   × 201: after 6 iterations against its twin run in float64, rel L2 ≤
+   1e-4 over all frames and over the 2·n_fft/hop frames at each end (where
+   the reflect pad's mirror acts), max |phase diff| ≤ 1e-4 where F < 50,
+   and the mean-phase rule; after 300 iterations (60 at F = 48) the
+   mean-phase rule against the float64 twin, another tile bit-equal, timed
+   beside its bound and the production's graphed cuFFT loop at the same
+   shape;
 3. the main path: ``convert_utterance`` on the stand-in corpus (8 pairs,
    held-out utterance 100162) with the default config, launch counters
    reset just before and read just after; every kernel of the default path
-   must have launched and neither fused kernel, the audio must be finite
+   must have launched (the centered Griffin-Lim kernel among them) and not
+   the fused MU kernel, the audio must be finite
    and of the input's length, n_iter ≤ max_iter and the MCD finite, its
-   Griffin-Lim must have captured a graph, and ``nmf_recon`` must have
+   Griffin-Lim must be one launch of the centered kernel and capture no
+   graph, and ``nmf_recon`` must have
    launched 1 + n_iter times (the error check's recon feeds the next
    update) and ``nmf_update`` n_iter times. The fenced ``dicts`` stage of
    five more fresh builds is printed (median and spread). Then three warm runs for
    audio-seconds per second (capturing nothing more) and one with fenced
-   stages; the production ``griffin_lim`` on the main path's Y graphed
-   against the eager loop (``torch.equal``) for graphs of 10, 50 and 300
-   iterations, each with its first call (capture) and warm wall and the
-   device memory its graphs hold; and ``torch.profiler`` over one more
+   stages; the production ``griffin_lim`` on the main path's Y: the
+   centered kernel against a float64 run of its twin (mean phase error no
+   more than twice the eager float32 loop's + 1e-7), warm wall and device
+   time beside the eager loop's; at hop 96 (the graphed route, which shapes
+   the kernel does not take keep) its graphs against the eager loop
+   (``torch.equal``), with the first call (capture) and warm wall and the
+   device memory the graphs hold; and ``torch.profiler`` over one more
    conversion: its summed device time, busy share and the hand-written
    kernels' calls and device time (each warm run uses a fresh store, so the
    dictionary build and its DTW run every time);
@@ -75,16 +89,17 @@ Phases (any failure exits non-zero and prints no result line):
    before: on the same corpus and input, ``nmf_activations(fused=True)``
    against the default solve (equal n_iter, H bit-equal: both sum P over the
    same K slices and den over d ascending), then
-   ``gl_angles_fused`` (300 iterations) seeded with the input's phase and a
-   centered ISTFT, against the production ``griffin_lim`` on the same Y:
+   ``gl_angles_fused`` with ``center=False`` (300 iterations, one launch)
+   seeded with the input's phase and a centered ISTFT, against the
+   production ``griffin_lim`` (the centered kernel) on the same Y:
    finite audio of the input's length and a spectral convergence within
    the JAX rule sc_fused < 1.3·sc_gl + 0.02;
 5. the serving path, counters reset just before, on the same corpus through
    ``evaluate.heldout_pair``: a ``Converter`` with the default (Frobenius)
    solver and four VTLP warps (K must be 30,720), ``convert`` of the
    held-out utterance and ``convert_batch`` of four utterances of different
-   lengths; ``nmf_recon`` and ``nmf_update`` must have launched and no fused
-   kernel; every audio finite and of its input's length; the dictionaries
+   lengths; ``nmf_recon`` and ``nmf_update`` must have launched and not the
+   fused MU kernel; every audio finite and of its input's length; the dictionaries
    built once (``_aligned_dicts.builds``, ``make_dictionary.builds`` and the
    DTW launch counters do not move after the constructor). With
    ``nmf.tol=0`` (a stacked solve has one n_iter, the stacked error's; with
@@ -108,7 +123,9 @@ Phases (any failure exits non-zero and prints no result line):
    and of F·hop samples. Printed: ``prepare_seconds``, warm ``convert`` wall
    (median of 3), ``convert_batch`` wall and its share an utterance, the
    steady ``push`` wall against the chunk's 80 ms, launches and graph
-   captures. Nothing in the phase catches a failure;
+   captures: every served and streamed length takes the centered kernel,
+   so the phase must capture no graph and launch it. Nothing in the phase
+   catches a failure;
 6. a small input (3 pairs, 20 MU iterations, 5 Griffin-Lim iterations)
    converted on the card and on the CPU (plain twins, which the CPU tests
    hold to the JAX reference): converted magnitude and audio within 1e-3
@@ -264,8 +281,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``obs.trace_to`` around one ``convert_utterance`` with its MCD, from a
    fresh store with the dictionary memo cleared: the one trace file it
    writes must name ``dtw_wavefront_kernel``, ``dtw_backtrace_kernel``,
-   ``nmf_recon_kernel`` and ``nmf_update_kernel`` as device events, every
-   kernel of the path must have launched and no fused one. (b)
+   ``nmf_recon_kernel``, ``nmf_update_kernel`` and ``gl_fused_kernel`` as
+   device events, every kernel of the path must have launched and not the
+   fused MU one. (b)
    ``align.build_exemplar_dicts`` on ``dtw_batch``'s paths of the 8 × 1408
    × 20 MFCC pairs and the |STFT| features: bit-equal to the rows
    ``build_exemplar_dicts_padded`` keeps, and on the card bit-equal to the
@@ -313,7 +331,7 @@ Phases (any failure exits non-zero and prints no result line):
    Nothing in the phase catches a failure.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: the main
-path's, and for the two fused kernels the fused path's; ``launches_serving``:
+path's, and for the fused MU kernel the fused path's; ``launches_serving``:
 the serving phase's; ``launches_world``: the WORLD phase's;
 ``launches_stage02``: phase 8's; ``launches_parallel``: phase 9's rank 0 in
 the two-rank world; ``launches_surface``: phase 12's traced conversion; the
@@ -647,6 +665,79 @@ def nmf_recon_served(torch, np, dev, rng, n_sms) -> dict:
                                    bound_ms=b_ms, bound_by=b_by)
         del A, H, P, P1, P2
     torch.cuda.empty_cache()
+    return out
+
+
+def gl_centered(torch, np, dev, rng, n_sms: int) -> dict:
+    """The centered kernel (``center=True``, the production's projection,
+    which ``griffin_lim`` takes on the card) at the served shapes, 620 and
+    1361 × 201 (tiles 5 and 11), and the stream's, 48 × 201 (tile 1: frame
+    0's mirror sums frames beyond its r − 1 neighbours). After 6
+    iterations, held by the center=False kernel's gates to the twin run in
+    float64, the arithmetic the kernel shares (the float32 twin's own
+    rounding can flip a nearly cancelling bin's phase): rel L2 ≤ 1e-4 over
+    all frames and over the 2r frames at each end (r = n_fft/hop; the
+    mirror changes only those, and one sample off reads ≥ 0.37 there), max
+    |phase diff| ≤ 1e-4 where F < 50, and a mean phase error against the
+    float64 twin at most twice the float32 twin's (+ 1e-7). After 300 iterations (60 at F = 48)
+    the same mean-phase rule, and another tile bit-equal. Timed (CUDA
+    events, median of 5) beside its bound and the production's graphed
+    cuFFT loop at the same shape (warm replays, captured before timing)."""
+    from exemplars_vc_tpu_torch.dsp import griffin_lim_cuda as glc
+
+    gl_mod = importlib.import_module("exemplars_vc_tpu_torch.dsp.griffin_lim")
+    n_fft, hop, nb, out = 400, 80, 201, {}
+    edge = 2 * (n_fft // hop)
+
+    def runs(mag, ang, n_it):
+        got = glc.gl_angles_fused(mag, ang, n_fft, hop, n_it, 0.9, center=True)
+        p32 = glc.gl_angles_fused_plain(mag, ang, n_fft, hop, n_it, 0.9, center=True)
+        p64 = glc.gl_angles_fused_plain(mag.double(), ang.to(torch.complex128), n_fft, hop,
+                                        n_it, 0.9, center=True)
+        torch.cuda.synchronize()
+        return got, p32, p64, float((got - p64).abs().mean()), float((p32 - p64).abs().mean())
+
+    def l2(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    for F, n_it in ((620, 300), (1361, 300), (48, 60)):
+        mag = torch.as_tensor(np.abs(rng.standard_normal((F, nb))).astype(np.float32),
+                              device=dev)
+        ang = torch.as_tensor(np.exp(2j * np.pi * rng.random((F, nb))).astype(np.complex64),
+                              device=dev)
+        g6, _, p64, e6_k, e6_p = runs(mag, ang, 6)
+        p64 = p64.to(torch.complex64)
+        ends = torch.cat([torch.arange(min(F, edge)), torch.arange(max(F - edge, 0), F)])
+        ends = ends.unique().to(dev)
+        l2_all, l2_ends = l2(g6, p64), l2(g6[ends], p64[ends])
+        max6 = float((g6 - p64).abs().max())
+        ok6 = (l2_all <= 1e-4 and l2_ends <= 1e-4 and e6_k <= 2 * e6_p + 1e-7
+               and (F >= 50 or max6 <= 1e-4))
+        got, _, _, e_k, e_p = runs(mag, ang, n_it)
+        plan = glc.gl_fused_plan(F, n_fft, hop, n_sms, center=True)
+        other = glc.gl_angles_fused(mag, ang, n_fft, hop, n_it, 0.9, center=True,
+                                    _plan=dict(plan, tile=plan["tile"] + 1))
+        same = torch.equal(other, got)
+        ms = cuda_ms(lambda: glc.gl_angles_fused(mag, ang, n_fft, hop, n_it, 0.9, center=True),
+                     reps=5)
+        loop = gl_mod._graphed_loop(mag, n_fft, hop, 0.9 / 1.9)
+        graphed_ms = cuda_ms(lambda: loop.run(mag, ang, n_it), reps=5)
+        b_ms, b_by = bound(4 * F * nb + 2 * 8 * F * nb,
+                           n_it * F * (2 * 2.5 * n_fft * math.log2(n_fft) + 4 * n_fft + 12 * nb))
+        say(f"gl_angles_fused center=True: F={F} bins={nb}, tile {plan['tile']} ({plan['grid']} "
+            f"CTAs of {plan['threads']} threads); 6 iterations against the float64 twin: rel L2 "
+            f"{l2_all:.3g}, over the {len(ends)} end frames {l2_ends:.3g} (limit 1e-4), max "
+            f"|phase diff| {max6:.3g} (limit 1e-4 where F < 50); against float64 mean |phase "
+            f"diff| kernel {e6_k:.3g}, float32 twin {e6_p:.3g}; {n_it} iterations: against "
+            f"float64 kernel {e_k:.3g}, float32 twin {e_p:.3g} (limit: kernel <= 2x the twin's "
+            f"+ 1e-7); tile + 1 bit-equal: {same}; kernel {ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}), roofline share {b_ms / ms:.4f}; graphed cuFFT loop of the production "
+            f"{graphed_ms:.4f} ms")
+        if not (ok6 and e_k <= 2 * e_p + 1e-7 and same):
+            fail(f"gl_angles_fused center=True at F={F}: outside tolerance, or tiles disagree")
+        out[F] = dict(ms=ms, bound_ms=b_ms, graphed_ms=graphed_ms, mean_err=e_k,
+                      twin_mean_err=e_p, rel_l2_6=l2_all, rel_l2_6_ends=l2_ends)
+    gl_mod._loops.clear()
     return out
 
 
@@ -1006,11 +1097,12 @@ def phase_kernels(torch, np, dev) -> dict:
         f"{out['gl_angles_fused']['plain_ms']:.4f} ms; graphed cuFFT yardstick "
         f"{out['gl_angles_fused']['library_ms']:.4f} ms; floor of {n_it} grid syncs on "
         f"{plan['grid']} blocks {sync_ms:.4f} ms ({sync_ms / n_it * 1e3:.3f} us each); "
-        f"production griffin_lim (center=True) graphed {prod[True][0]:.4f} ms (device "
-        f"{fmt_ms(prod[True][1])}), eager {prod[False][0]:.4f} ms (device "
+        f"production griffin_lim (center=True: the centered kernel) {prod[True][0]:.4f} ms "
+        f"(device {fmt_ms(prod[True][1])}), eager {prod[False][0]:.4f} ms (device "
         f"{fmt_ms(prod[False][1])})")
+    out["_gl_centered"] = gl_centered(torch, np, dev, rng, n_sms)
     mcd = out.pop("_dtw_mcd")
-    extra = {k: out.pop(k) for k in ("_dtw_long", "_nmf_world", "_nmf_served")}
+    extra = {k: out.pop(k) for k in ("_dtw_long", "_nmf_world", "_nmf_served", "_gl_centered")}
     for name, r in out.items():
         say(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
@@ -1057,7 +1149,8 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
     off_path = {name: fn.launches for name, fn in fused.items()}
     F, K, D = res.nmf_shape
     say(f"main path: F={F} K={K} D={D} n_iter={res.n_iter} nmf_error={res.nmf_error:.6g}")
-    say(f"main path: launches {launches}; Griffin-Lim graphs captured {captures_cold}")
+    say(f"main path: launches {launches}; Griffin-Lim graphs captured {captures_cold} (the "
+        f"centered kernel takes F = {res.nmf_shape[0]})")
     say(f"main path: first run {cold_s:.4f} s, fenced stages (s) "
         f"{json.dumps({k: round(v, 6) for k, v in res.timings.items()})}")
     say(f"main path: stand-in held-out MCD {res.mcd_vs_reference:.4f} dB "
@@ -1067,8 +1160,9 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
     if launches["nmf_recon"] != 1 + res.n_iter or launches["nmf_update"] != res.n_iter:
         fail(f"the solve must launch nmf_recon 1 + n_iter times (the error check's recon feeds "
              f"the next update) and nmf_update n_iter times: {launches}, n_iter {res.n_iter}")
-    if captures_cold < 1:
-        fail("the main path's Griffin-Lim captured no graph")
+    if captures_cold or launches["gl_angles_fused"] != 1:
+        fail(f"the main path's Griffin-Lim must be one launch of the centered kernel and no "
+             f"capture: {launches['gl_angles_fused']} launches, {captures_cold} captures")
     if max(off_path.values()) > 0:
         fail(f"the default path launched an opt-in fused kernel: {off_path}")
     if res.audio.shape != x_in.shape or not np.isfinite(res.audio).all():
@@ -1147,43 +1241,63 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
         fail(f"a warm run captured graphs again: {gl_mod.griffin_lim.captures - captures}")
 
     # the production Griffin-Lim on the main path's Y and seed phase: the
-    # graphs against the eager loop (bit-equal), and each block size's cold
-    # call (capture and replays) and warm wall, graphs of the shape captured
-    # anew; the pool memory is what the device holds after the cold call
+    # centered kernel (one launch, no capture), its phases no farther from
+    # the float64 twin than the eager float32 loop's; then the graphed route,
+    # which shapes beyond the kernel take (here hop 96, which does not divide
+    # n_fft), against its eager loop (bit-equal), its first call (capture)
+    # and warm wall
+    from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import gl_angles_fused_plain
+
     Y = res.converted["stft"]
     S = extract_stft_complex(x_in, cfg, dev)
     n_fft, hop, iters = cfg.mcep.frame_length, cfg.mcep.hop_length, cfg.nmf.griffin_lim_iters
 
-    def gl(graph=True):
-        return gl_mod.griffin_lim(Y, n_fft=n_fft, hop_length=hop, n_iter=iters,
-                                  length=len(x_in), init_phase=S, _graph=graph)
+    def gl(graph=True, hop_length=hop, phase=False):
+        return gl_mod.griffin_lim(Y, n_fft=n_fft, hop_length=hop_length, n_iter=iters,
+                                  length=len(x_in), init_phase=S, _graph=graph,
+                                  return_phase=phase)
 
-    y_eager = gl(graph=False)
-    default_block = gl_mod.GRAPH_BLOCK
-    for block in sorted({default_block, 10, 50, iters}):
-        gl_mod.GRAPH_BLOCK = block
-        gl_mod._loops.clear()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        mem0, caps0 = torch.cuda.memory_allocated(dev), gl_mod.griffin_lim.captures
-        t0 = time.perf_counter()
-        y_graph = gl()
-        torch.cuda.synchronize()
-        cold_ms = (time.perf_counter() - t0) * 1e3
-        mem = torch.cuda.memory_allocated(dev) - mem0
-        caps = gl_mod.griffin_lim.captures - caps0
-        warm_ms = wall_ms(gl)
-        if not torch.equal(y_graph, y_eager) or gl_mod.griffin_lim.captures - caps0 != caps:
-            fail(f"graphed griffin_lim (block {block}) is not bit-equal to the eager loop, or "
-                 f"a second call captured again")
-        say(f"main path GL ({iters} iterations, F={Y.shape[0]}), graphs of {block} iterations: "
-            f"bit-equal to the eager loop; first call {cold_ms:.4f} ms ({caps} captures), warm "
-            f"wall {warm_ms:.4f} ms, held after the first call {mem / 2**20:.3f} MiB")
-    gl_mod.GRAPH_BLOCK = default_block
+    caps0, gl0 = gl_mod.griffin_lim.captures, counted["gl_angles_fused"].launches
+    y_f, a_f = gl(phase=True)
+    n_launch = counted["gl_angles_fused"].launches - gl0
+    y_e, a_e = gl(graph=False, phase=True)
+    S0 = S[: Y.shape[0]]
+    a0 = torch.where(S0.abs() > 0, S0 / torch.clamp(S0.abs(), min=1e-16),
+                     torch.ones((), dtype=torch.complex64, device=dev))
+    a64 = gl_angles_fused_plain(Y.double(), a0.to(torch.complex128), n_fft, hop, iters, 0.9,
+                                center=True)
+    e_f, e_e = float((a_f - a64).abs().mean()), float((a_e - a64).abs().mean())
+    e_y = float(torch.linalg.norm(y_f - y_e) / torch.linalg.norm(y_e))
+    dev_f, dev_e = device_ms(gl), device_ms(lambda: gl(graph=False))
+    say(f"main path GL ({iters} iterations, F={Y.shape[0]}): the centered kernel, "
+        f"{n_launch} launch, "
+        f"{gl_mod.griffin_lim.captures - caps0} captures; against float64 mean |phase diff| "
+        f"kernel {e_f:.3g}, eager float32 loop {e_e:.3g} (limit: kernel <= 2x the loop's + "
+        f"1e-7); audio rel L2 kernel vs eager {e_y:.3g}; warm wall {wall_ms(gl):.4f} ms (device "
+        f"{fmt_ms(dev_f)}), eager {wall_ms(lambda: gl(graph=False)):.4f} ms (device "
+        f"{fmt_ms(dev_e)})")
+    if gl_mod.griffin_lim.captures != caps0 or n_launch != 1 or not e_f <= 2 * e_e + 1e-7:
+        fail("the main path's centered Griffin-Lim captured a graph or is outside tolerance")
     gl_mod._loops.clear()
-    dev_g, dev_e = device_ms(gl), device_ms(lambda: gl(graph=False))
-    say(f"main path GL: warm wall graphed {wall_ms(gl):.4f} ms (device {fmt_ms(dev_g)}), eager "
-        f"{wall_ms(lambda: gl(graph=False)):.4f} ms (device {fmt_ms(dev_e)})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0, caps0 = torch.cuda.memory_allocated(dev), gl_mod.griffin_lim.captures
+    t0 = time.perf_counter()
+    y_graph = gl(hop_length=96)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    mem = torch.cuda.memory_allocated(dev) - mem0
+    caps = gl_mod.griffin_lim.captures - caps0
+    warm_ms = wall_ms(lambda: gl(hop_length=96))
+    if not torch.equal(y_graph, gl(graph=False, hop_length=96)) or caps < 1 or \
+            gl_mod.griffin_lim.captures - caps0 != caps:
+        fail("graphed griffin_lim (hop 96) is not bit-equal to the eager loop, captured "
+             "nothing, or a second call captured again")
+    say(f"main path GL at hop 96 (the graphed route), graphs of {gl_mod.GRAPH_BLOCK} "
+        f"iterations: bit-equal to the eager loop; first call {cold_ms:.4f} ms ({caps} "
+        f"captures), warm wall {warm_ms:.4f} ms, held after the first call "
+        f"{mem / 2**20:.3f} MiB")
+    gl_mod._loops.clear()
 
     runs = [len(warm)]
 
@@ -1195,7 +1309,8 @@ def phase_main_path(torch, np, dev, root: str, corpus: tuple, counted: dict,
     total, per = device_profile(fresh)
     kernels = {name: (calls, round(ms, 6)) for name, (calls, ms) in per.items()
                if any(k in name for k in ("dtw_wavefront_kernel", "dtw_backtrace_kernel",
-                                          "nmf_recon_kernel", "nmf_update_kernel"))}
+                                          "nmf_recon_kernel", "nmf_update_kernel",
+                                          "gl_fused_kernel"))}
     say(f"main path: device time of one warm conversion {fmt_ms(total)}"
         + (f", busy share {total / (med * 1e3):.4f} of the warm median" if total else "")
         + f"; hand-written kernels (calls, ms) {json.dumps(kernels)}")
@@ -1231,6 +1346,7 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
 
     for fn in fused.values():
         fn.launches = 0
+    gl0 = gl_angles_fused.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st_f = nmf_activations(X, A, fused=True, **kw)
@@ -1240,6 +1356,7 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in fused.items()}
+    gl_launches = gl_angles_fused.launches - gl0
 
     st_d = nmf_activations(X, A, **kw)
     Y_d = convert_features(st_d.H, B)
@@ -1256,14 +1373,15 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
     say(f"fused path: F={F} K={K} D={D}: n_iter fused {st_f.n_iter} / default {st_d.n_iter}, "
         f"H rel L2 {e_h:.3g} (limit 0: bit-equal), Y rel L2 "
         f"{float(torch.linalg.norm(Y_f - Y_d) / torch.linalg.norm(Y_d)):.3g}")
-    say(f"fused path: launches {launches}; solve + convert + GL {iters} + ISTFT first run "
+    say(f"fused path: launches {launches}, gl_angles_fused (center=False) {gl_launches}; solve + "
+        f"convert + GL {iters} + ISTFT first run "
         f"{fused_s:.4f} s")
     ms = {
         "solve fused": wall_ms(lambda: nmf_activations(X, A, fused=True, **kw)),
         "solve default": wall_ms(lambda: nmf_activations(X, A, **kw)),
         "GL fused": wall_ms(lambda: gl_angles_fused(Y_f, ang0, n_fft, hop, iters, 0.9)),
-        "GL production": wall_ms(lambda: griffin_lim(Y_f, n_fft=n_fft, hop_length=hop,
-                                                     n_iter=iters, init_phase=S)),
+        "GL production (centered kernel)": wall_ms(lambda: griffin_lim(
+            Y_f, n_fft=n_fft, hop_length=hop, n_iter=iters, init_phase=S)),
         "GL production eager": wall_ms(lambda: griffin_lim(Y_f, n_fft=n_fft, hop_length=hop,
                                                            n_iter=iters, init_phase=S,
                                                            _graph=False)),
@@ -1272,8 +1390,8 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
         "solve fused": device_ms(lambda: nmf_activations(X, A, fused=True, **kw)),
         "solve default": device_ms(lambda: nmf_activations(X, A, **kw)),
         "GL fused": device_ms(lambda: gl_angles_fused(Y_f, ang0, n_fft, hop, iters, 0.9)),
-        "GL production": device_ms(lambda: griffin_lim(Y_f, n_fft=n_fft, hop_length=hop,
-                                                       n_iter=iters, init_phase=S)),
+        "GL production (centered kernel)": device_ms(lambda: griffin_lim(
+            Y_f, n_fft=n_fft, hop_length=hop, n_iter=iters, init_phase=S)),
         "GL production eager": device_ms(lambda: griffin_lim(Y_f, n_fft=n_fft, hop_length=hop,
                                                              n_iter=iters, init_phase=S,
                                                              _graph=False)),
@@ -1287,7 +1405,7 @@ def phase_fused_path(torch, np, dev, root: str, corpus: tuple, fused: dict) -> d
     say(f"fused path: spectral convergence fused GL {sc_f:.7f}, production GL {sc_g:.7f} "
         f"(rule sc_fused < 1.3 sc_gl + 0.02); stand-in MCD fused {mcd_f:.4f} dB, production "
         f"{mcd_g:.4f} dB (stand-in corpus; not comparable to the real corpus's figure)")
-    if launches["nmf_mu_fused"] < st_f.n_iter or launches["gl_angles_fused"] < 1:
+    if launches["nmf_mu_fused"] < st_f.n_iter or gl_launches != 1:
         fail(f"the fused path did not run its kernels: {launches}, n_iter {st_f.n_iter}")
     if st_f.n_iter != st_d.n_iter or e_h != 0.0:
         fail("the fused solve is not bit-equal to the default solve")
@@ -1440,15 +1558,18 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     if e_y > 1e-4 or worst[10] > 1e-4:
         fail("serving: a batch item differs from its single conversion")
 
-    # the bfloat16 solve: plain torch products by design, no hand-written kernel
+    # the bfloat16 solve: plain torch products by design, no hand-written
+    # kernel; each conversion's Griffin-Lim is one launch of the centered one
     before = counts()
     conv_bf = Converter(replace(cfg_frob, nmf=replace(cfg_frob.nmf, work_dtype="bfloat16")),
                         store, data, nb_file=8, device=dev)
     bf, _ = timed(lambda: conv_bf.convert(src))
     bf_walls = [timed(lambda: conv_bf.convert(src))[1] for _ in range(3)]
     check_audio("bfloat16 convert", bf.audio, sigs[0])
-    if counts() != before:
-        fail("serving: the bfloat16 solve launched a hand-written kernel")
+    moved = {name: n - before[name] for name, n in counts().items()}
+    if moved.pop("gl_angles_fused") != 1 + len(bf_walls) or any(moved.values()):
+        fail(f"serving: the bfloat16 solve launched a hand-written kernel, or Griffin-Lim did "
+             f"not take its kernel once a conversion: {moved}")
     say(f"serving: nmf.work_dtype=bfloat16 (plain torch products by design, no hand-written "
         f"kernel): n_iter {bf.nmf_iters}, error {bf.nmf_error:.6g} against float32's "
         f"{first.nmf_error:.6g}; warm wall median {statistics.median(bf_walls):.4f} ms")
@@ -1529,7 +1650,7 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     chunk_ms = 1e3 * chunk * hop / cfg_frob.data.sr
     say(f"serving: stream: {len(push_ms)} pushes of {chunk} frames ({chunk_ms:.1f} ms of audio "
         f"each), context 32, 60 Griffin-Lim iterations: first three pushes "
-        f"{[round(v, 2) for v in push_ms[:3]]} ms (the context grows: a graph capture each), "
+        f"{[round(v, 2) for v in push_ms[:3]]} ms (the context grows: a new F each), "
         f"steady push median {statistics.median(steady):.4f} ms, max {max(steady):.4f} ms, "
         f"{statistics.median(steady) / chunk_ms:.4f} of real time; Griffin-Lim graphs captured "
         f"by the stream {gl_mod.griffin_lim.captures - caps_stream}")
@@ -1541,8 +1662,11 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
         f"in the process of the expansion's kernels)")
     launches = counts()
     say(f"serving: launches of the whole phase {launches}; Griffin-Lim graphs captured "
-        f"{gl_mod.griffin_lim.captures - caps0} (kept for the {gl_mod._GRAPHS_KEPT} most recent "
-        f"shapes)")
+        f"{gl_mod.griffin_lim.captures - caps0} (every served and streamed length takes the "
+        f"centered kernel)")
+    if gl_mod.griffin_lim.captures != caps0 or launches["gl_angles_fused"] < 1:
+        fail(f"serving: Griffin-Lim captured {gl_mod.griffin_lim.captures - caps0} graphs, or "
+             f"the centered kernel never launched: {launches}")
     return launches
 
 
@@ -1855,8 +1979,8 @@ def phase_stage02(torch, np, dev, root: str, corpus: tuple, counted: dict,
         say(f"stage 02: eval-heldout (stand-in MCD, dB; not comparable to the real corpus's) "
             f"{json.dumps(held)}")
         say(f"stage 02: eval-loo {json.dumps(loo)}; {walls['eval-loo'] / 2:.4f} s a fold")
-        if launches["nmf_mu_fused"] or launches["gl_angles_fused"]:
-            fail(f"stage 02: a fused kernel launched: {launches}")
+        if launches["nmf_mu_fused"]:
+            fail(f"stage 02: the fused MU kernel launched: {launches}")
         if (dtw["make-dict mcep"] != (1, 1) or dtw["freq-warp dfw"][0] < 1
                 or min(launches[k] for k in counted) < 1):
             fail(f"stage 02: launches {launches}, DTW by command {dtw}")
@@ -2827,7 +2951,7 @@ def phase_surface(torch, np, dev, root: str, corpus: tuple, counted: dict,
     # (a) trace_to around one conversion and its MCD, the dictionaries
     # rebuilt (memo cleared, a fresh store), so both DTW kernels run in it
     kernels = ("dtw_wavefront_kernel", "dtw_backtrace_kernel", "nmf_recon_kernel",
-               "nmf_update_kernel")
+               "nmf_update_kernel", "gl_fused_kernel")
     everything = {**counted, **fused}
     convert_mod._DICTS_MEMO.clear()
     trace_dir = os.path.join(root, "p12_trace")
@@ -3245,7 +3369,8 @@ def main() -> None:
                 say(f"  ptxas: {line.strip()}")
 
     counted = {"dtw_wavefront": dtw_wavefront, "dtw_backtrace": dtw_backtrace,
-               "nmf_recon": nmf_recon, "nmf_update": nmf_update}
+               "nmf_recon": nmf_recon, "nmf_update": nmf_update,
+               "gl_angles_fused": gl_angles_fused}
     sources = {"dtw_wavefront": ("exemplars_vc_tpu_torch/csrc/dtw_wavefront.cu",
                                  "exemplars_vc_tpu/align/dtw_pallas.py:102"),
                "dtw_backtrace": ("exemplars_vc_tpu_torch/csrc/dtw_wavefront.cu",
@@ -3258,8 +3383,9 @@ def main() -> None:
                                 "exemplars_vc_tpu/factorize/nmf_pallas.py:50"),
                "gl_angles_fused": ("exemplars_vc_tpu_torch/csrc/griffin_lim_fused.cu",
                                    "exemplars_vc_tpu/dsp/griffin_lim_pallas.py:143")}
-    # the opt-in fused path's kernels, counted on their own path
-    fused = {"nmf_mu_fused": nmf_mu_fused, "gl_angles_fused": gl_angles_fused}
+    # the opt-in fused path's kernel, counted on its own path (the fused
+    # Griffin-Lim is on the main path: centered there, opt-in uncentered)
+    fused = {"nmf_mu_fused": nmf_mu_fused}
 
     kern = phase_kernels(torch, np, dev)
     with tempfile.TemporaryDirectory(prefix="evc_chip_smoke_") as root:

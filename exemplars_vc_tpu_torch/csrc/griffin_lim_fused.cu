@@ -1,12 +1,18 @@
 // Fast Griffin-Lim on Hopper with all n_iter iterations in one launch.
 //
 // Replaces: exemplars_vc_tpu/dsp/griffin_lim_pallas.py:gl_pallas_angles
-// (entered through gl_angles_fused). Per iteration, for every frame t:
+// (entered through gl_angles_fused) with center = 0, and the centered loop
+// of exemplars_vc_tpu/dsp/griffin_lim.py with center = 1. Per iteration, for
+// every frame t:
 //
 //   s        = mag * angles
 //   frame_t  = window * irfft(s)                         (n_fft real)
-//   y        = overlap-add of the frames * 1/window-sum  center=False, NOLA
-//   rebuilt  = rfft(window * y[t*hop : t*hop + n_fft])
+//   y        = overlap-add of the frames * 1/window-sum  (NOLA)
+//   p        = y (center = 0), or y trimmed by n_fft/2 at both ends and
+//              reflect-padded back (center = 1: stft(istft(s)) of
+//              dsp/stft.py): p[g] = y[n_fft - g] for g < n_fft/2, and the
+//              mirror at the tail; every other sample is y's
+//   rebuilt  = rfft(window * p[t*hop : t*hop + n_fft])
 //   t        = rebuilt - mom * prev;  prev = rebuilt;  mom = mu / (1 + mu)
 //   angles   = t / max(|t|, 1e-16)
 //
@@ -44,8 +50,17 @@
 //
 // Only the overlap-add crosses CTAs: each CTA writes its windowed frames to
 // a global buffer (double-buffered by iteration parity) and reads, with
-// __ldcg (L2, never a stale L1 line), the frames that overlap its signal
-// segment: its own and r - 1 = n_fft/hop - 1 on each side. The iteration
+// __ldcg (L2, never a stale L1 line), the frames that overlap the samples
+// its segment takes: its own and r - 1 = n_fft/hop - 1 on each side. With
+// center = 1 the CTAs of the first and last frames take their outer n_fft/2
+// samples from the mirrored positions: the overlap-add there sums frames up
+// to n_fft/hop away (frame 0 reads y[n_fft]), beyond those neighbours when
+// the tile is small, and each CTA sums them itself from the global buffer
+// after the grid sync, in the same order as for an interior sample. The
+// 1/window-sum of each sample is computed once, at the start, in float64
+// from the float32 window, frames in ascending order, as _inv_wsum builds
+// it on the host: the same bits, and nothing to upload for a new F. The
+// iteration
 // barrier is one grid sync (a cooperative launch; a grid larger than the
 // co-resident CTAs is refused before launch). A neighbour hand-off, each CTA
 // waiting with ld.acquire.gpu polls only for the tiles whose frames overlap
@@ -120,6 +135,16 @@ __device__ __forceinline__ GlSmem gl_carve(float4* base, int tile, int n, int ho
   s.wa = s.ws + n;
   s.iw = s.wa + n;
   return s;
+}
+
+// The sample of the overlap-add that sample g of the framed signal takes
+// (L = n + hop (F - 1) samples): itself, or with center its reflection in
+// the first or last sample that the trim by pad = n/2 keeps.
+__device__ __forceinline__ int gl_source(int g, int L, int pad, bool center) {
+  if (!center) return g;
+  if (g < pad) return 2 * pad - g;
+  if (g >= L - pad) return 2 * (L - pad - 1) - g;
+  return g;
 }
 
 // floor(a / d) for 0 <= a < EVC_GL_MAX_INDEX, given rcp = 1.0f / d: (a + 0.5)
@@ -362,9 +387,8 @@ __device__ __forceinline__ void gl_spectrum(const double2* z, double2* nz, const
 __global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
     gl_fused_kernel(const float* __restrict__ mag_g, const float2* __restrict__ ang0,
                     float2* __restrict__ ang_out, double* frames,
-                    const float* __restrict__ consts, const float* __restrict__ inv_w, int F,
-                    int n, int hop, int tile, int n_tw, int n_iter, double mom,
-                    const GlSched sc) {
+                    const float* __restrict__ consts, int F, int n, int hop, int tile, int n_tw,
+                    int n_iter, double mom, int center, const GlSched sc) {
   extern __shared__ float4 evc_gl_smem[];
   const int tid = threadIdx.x, nth = blockDim.x;
   const int bins = n / 2 + 1;
@@ -373,6 +397,7 @@ __global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
   const int items = even ? m / 2 + 1 : bins;    // spectrum work items a frame
   const int t0 = blockIdx.x * tile, nt = min(tile, F - t0);
   const int seg_len = (nt - 1) * hop + n;
+  const int sig_len = n + hop * (F - 1), pad = n / 2;
   const float rcp_m = 1.0f / m, rcp_items = 1.0f / items, rcp_hop = 1.0f / hop;
   const GlSmem s = gl_carve(evc_gl_smem, tile, n, hop, n_tw);
   const size_t base = (size_t)t0 * bins;
@@ -391,12 +416,23 @@ __global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
     s.ws[i] = win_g[i];
     s.wa[i] = win_g[n + i];
   }
-  for (int i = tid; i < seg_len; i += nth) s.iw[i] = inv_w[(size_t)t0 * hop + i];
   for (int e = tid; e < nt * bins; e += nth) {
     s.mag[e] = mag_g[base + e];
     s.prev[e] = make_double2(0.0, 0.0);
   }
   __syncthreads();
+  // 1 / max(window-sum, 1e-8) at the sample each segment sample takes
+  for (int i = tid; i < seg_len; i += nth) {
+    const int g = gl_source(t0 * hop + i, sig_len, pad, center);
+    const int lo = g >= n ? gl_div(g - n, rcp_hop) + 1 : 0;
+    const int hi = min(F - 1, gl_div(g, rcp_hop));
+    double wsum = 0.0;
+    for (int t = lo; t <= hi; ++t) {
+      const double w = s.wa[g - t * hop];
+      wsum += w * w;
+    }
+    s.iw[i] = (float)(1.0 / fmax(wsum, 1e-8));
+  }
   for (int e = tid; e < nt * items; e += nth) {   // the first spectra, mag * angles0
     const int f = gl_div(e, rcp_items);
     if (even)
@@ -430,7 +466,7 @@ __global__ void __launch_bounds__(EVC_GL_MAX_THREADS)
     // samples of up to EVC_GL_OLA_LOADS frames are loaded before the first
     // add, so a sample waits for one L2 round trip, not one a frame
     for (int i = tid; i < seg_len; i += nth) {
-      const int g = t0 * hop + i;
+      const int g = gl_source(t0 * hop + i, sig_len, pad, center);
       const int lo = g >= n ? gl_div(g - n, rcp_hop) + 1 : 0;
       const int hi = min(F - 1, gl_div(g, rcp_hop));
       const double* src = fr + (size_t)lo * n + (g - lo * hop);   // next frame: + n - hop
@@ -517,20 +553,25 @@ int evc_gl_fused_resident(int tile, int n_fft, int hop, int n_tw, int threads, i
 }
 
 // mag (F, n_fft/2+1) f32 >= 0, ang0 and ang_out (F, n_fft/2+1) complex64,
-// frames (2, F, n_fft) f64 scratch, consts (f32) = the M-point twiddles and
-// roots (n_tw complex) ++ e^{-2 pi i k / n_fft}, k <= M (n_fft even) ++
-// window/n_fft ++ window, inv_w (n_fft + hop (F - 1)) f32. The plan: tile,
-// threads (a multiple of 32) and the radix schedule, whose product is M
-// (n_fft / 2, or n_fft when odd). Anything else is refused
-// (cudaErrorInvalidValue), and a grid larger than the co-resident CTAs with
-// cudaErrorCooperativeLaunchTooLarge, before anything is launched.
+// frames (at least 2 F n_fft) f64 scratch, consts (f32) = the M-point
+// twiddles and roots (n_tw complex) ++ e^{-2 pi i k / n_fft}, k <= M (n_fft
+// even) ++ window/n_fft ++ window. center 0 or 1; with 1 the trimmed signal,
+// hop (F - 1) + n_fft - 2 (n_fft / 2) samples, must be longer than the
+// reflect pad n_fft / 2. The plan: tile, threads (a multiple of 32) and the
+// radix schedule, whose product is M (n_fft / 2, or n_fft when odd).
+// Anything else is refused (cudaErrorInvalidValue), and a grid larger than
+// the co-resident CTAs with cudaErrorCooperativeLaunchTooLarge, before
+// anything is launched.
 int evc_gl_fused(const float* mag, const void* ang0, void* ang_out, double* frames,
-                 const float* consts, const float* inv_w, int F, int n_fft, int hop, int tile,
-                 int threads, const int* radices, int n_stages, int n_iter, double mom,
+                 const float* consts, int F, int n_fft, int hop, int tile, int threads,
+                 const int* radices, int n_stages, int n_iter, double mom, int center,
                  void* stream) {
-  if (F < 1 || n_fft < 2 || n_iter < 0 || n_stages < 0 || n_stages > EVC_GL_MAX_STAGES ||
+  if (F < 1 || n_fft < 2 || hop < 1 || n_iter < 0 || n_stages < 0 ||
+      n_stages > EVC_GL_MAX_STAGES || (center != 0 && center != 1) ||
       (long long)tile * n_fft >= EVC_GL_MAX_INDEX ||
       (long long)F * hop + n_fft >= EVC_GL_MAX_INDEX)
+    return (int)cudaErrorInvalidValue;
+  if (center && (long long)hop * (F - 1) + n_fft - 2 * (n_fft / 2) <= n_fft / 2)
     return (int)cudaErrorInvalidValue;
   GlSched sc;
   sc.n = n_stages;
@@ -549,8 +590,8 @@ int evc_gl_fused(const float* mag, const void* ang0, void* ang_out, double* fram
   if (e != 0) return e;
   const int grid = (F + tile - 1) / tile;
   if (grid > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&mag, &ang0, &ang_out, &frames, &consts, &inv_w, &F,
-                  &n_fft, &hop, &tile, &n_tw, &n_iter, &mom, &sc};
+  void* args[] = {&mag, &ang0, &ang_out, &frames, &consts, &F, &n_fft,
+                  &hop, &tile, &n_tw, &n_iter, &mom, &center, &sc};
   const cudaError_t le = cudaLaunchCooperativeKernel((const void*)gl_fused_kernel, dim3(grid),
                                                      dim3(threads), args, (size_t)smem,
                                                      (cudaStream_t)stream);

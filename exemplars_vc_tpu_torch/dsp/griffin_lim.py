@@ -2,22 +2,37 @@
 ``exemplars_vc_tpu/dsp/griffin_lim.py``), plain torch over ``torch.fft``.
 
 Each iteration projects mag∘angles onto consistent spectrograms (ISTFT then
-STFT at the magnitude's natural length, trimmed to its frame count), then
-extrapolates with momentum μ/(1+μ) (Perraudin et al. 2013; μ = 0 is the
+STFT at the magnitude's natural length, trimmed to its frame count: the
+centered, reflect-padded projection, whose fixed point is the production's),
+then extrapolates with momentum μ/(1+μ) (Perraudin et al. 2013; μ = 0 is the
 classic update).
 
-On a CUDA tensor the iterations replay captured CUDA graphs, the
-counterpart of the reference's ``lax.fori_loop`` compiled once: ~20 small
-kernels an iteration, which run eagerly take ~10× their device time in
-launches. A graph holds ``GRAPH_BLOCK`` iterations over static buffers
-(magnitude, angles, momentum state) and is replayed ``n_iter //
-GRAPH_BLOCK`` times, a graph of the remainder once; both are captured at the
-first call of a shape and kept (``griffin_lim.captures`` counts captures).
-While a profiler records, each miss of the cache (a new shape's buffers and
-the least recent shape's eviction) and each capture is a
-``griffin_lim.capture`` span (``obs.profiling``).
-The same kernels run in the same order as the eager loop, so the result is
-bit-equal to it; ``_graph=False`` runs the eager loop (the CPU always does).
+Which route the iterations take is decided up front from the device and the
+shape alone:
+
+- On a CUDA tensor (``_graph=True``, ``n_iter > 0``) whose shape
+  ``griffin_lim_cuda.fused_route`` accepts (hop divides n_fft, a tile that
+  fits shared memory: up to 19 frames an SM at n_fft 400, so 2,508 frames on
+  132 SMs, ~25 s;
+  F ≥ 4 for the reflect pad), all iterations are one cooperative launch of
+  the fused kernel with ``center=True``, which computes this same centered
+  projection in float64 (``griffin_lim.fused`` counts these calls). Every
+  served and streamed synthesis takes it; a new length costs no capture.
+- Any other CUDA shape replays captured CUDA graphs, the counterpart of the
+  reference's ``lax.fori_loop`` compiled once: ~20 small kernels an
+  iteration, which run eagerly take ~10× their device time in launches. A
+  graph holds ``GRAPH_BLOCK`` iterations over static buffers (magnitude,
+  angles, momentum state) and is replayed ``n_iter // GRAPH_BLOCK`` times,
+  a graph of the remainder once; both are captured at the first call of a
+  shape and kept (``griffin_lim.captures`` counts captures). While a
+  profiler records, each miss of the cache (a new shape's buffers and the
+  least recent shape's eviction) and each capture is a
+  ``griffin_lim.capture`` span (``obs.profiling``). The same kernels run in
+  the same order as the eager loop, so the result is bit-equal to it.
+- ``_graph=False`` runs the eager loop (the CPU always does).
+
+The fused route differs from the float32 loops only in rounding (float64
+transforms in place of float32 cuFFT).
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ from collections import OrderedDict
 import torch
 
 from exemplars_vc_tpu_torch import prng
+from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import fused_route, gl_angles_fused
 from exemplars_vc_tpu_torch.dsp.stft import istft, stft
 from exemplars_vc_tpu_torch.obs.profiling import Timer
 
@@ -138,8 +154,9 @@ def griffin_lim(magnitude: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
     conversion path); exactly-zero bins get unit phase. Without it the
     phases start uniform-random, 2π·``uniform(key)`` (``key`` ``PRNGKey(0)``
     when None, as in the JAX package; drawn on the CPU, then moved).
-    On a CUDA tensor the iterations replay captured graphs (module
-    docstring); a capture that fails raises."""
+    On a CUDA tensor the iterations run in the fused kernel or replay
+    captured graphs, by shape (module docstring); a launch or a capture
+    that fails raises."""
     mag = torch.clamp(magnitude, min=0.0).float()
     if init_phase is not None:
         ip = init_phase[: mag.shape[0]].to(torch.complex64)
@@ -151,7 +168,13 @@ def griffin_lim(magnitude: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
         angles = torch.polar(torch.ones_like(u), 2.0 * math.pi * u)
 
     alpha = momentum / (1.0 + momentum)
-    if mag.device.type == "cuda" and _graph and n_iter > 0:
+    on_card = mag.device.type == "cuda" and _graph
+    if on_card and fused_route(
+            mag.shape[0], n_fft, hop_length, n_iter,
+            torch.cuda.get_device_properties(mag.device).multi_processor_count):
+        angles = gl_angles_fused(mag, angles, n_fft, hop_length, n_iter, momentum, center=True)
+        griffin_lim.fused += 1
+    elif on_card and n_iter > 0:
         angles = _graphed_loop(mag, n_fft, hop_length, alpha).run(mag, angles, n_iter)
     else:
         angles, _ = _iterate(mag, angles, torch.zeros_like(angles), n_fft, hop_length, alpha,
@@ -163,3 +186,4 @@ def griffin_lim(magnitude: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
 
 
 griffin_lim.captures = 0
+griffin_lim.fused = 0

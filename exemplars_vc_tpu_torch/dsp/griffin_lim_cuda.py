@@ -6,17 +6,25 @@ through ``gl_angles_fused``); the kernel is ``csrc/griffin_lim_fused.cu``. A
 CUDA tensor goes to the kernel (or the call raises); a CPU tensor goes to
 ``gl_angles_fused_plain``.
 
-Each iteration is the fast-GL update over a ``center=False`` consistency
-projection with NOLA normalisation (``project_nocenter_reference``)::
+Each iteration is the fast-GL update over a consistency projection with
+NOLA normalisation::
 
     rebuilt = project(mag ⊙ angles);  t = rebuilt − μ/(1+μ)·prev
     prev = rebuilt;  angles = t / max(|t|, 1e-16)
 
-It is a different fixed point from ``dsp/griffin_lim.py``'s centered,
-reflect-padded projection at the r − 1 edge frames, so it stays opt-in, as
-in the JAX package. The state stays at F rows: the TPU kernel's F + r − 1
-rows and circular rolls are a layout device, and its rows [:F] equal this
-acyclic projection.
+Two projections, by ``center``:
+
+- ``center=False`` (``project_nocenter_reference``): frames re-taken from
+  the overlap-add itself, the JAX package's ``gl_pallas_angles``. The state
+  stays at F rows: the TPU kernel's F + r − 1 rows and circular rolls are a
+  layout device, and its rows [:F] equal this acyclic projection.
+- ``center=True`` (``project_center_reference``): ``stft(istft(s))[:F]`` of
+  ``dsp/stft.py``, the overlap-add trimmed by n_fft/2 at both ends and
+  reflect-padded back, so the first and last n_fft/2 samples mirror interior
+  ones. This is the production's fixed point: ``dsp/griffin_lim.py`` sends
+  every CUDA shape that :func:`fused_route` accepts here (the served and
+  streamed syntheses), and the two projections differ at the r − 1 edge
+  frames.
 
 The twin keeps the reference's table products (the spec of an iteration);
 the kernel computes the same projection with FFTs, a frame's real n_fft-point
@@ -25,7 +33,9 @@ pieces are here: the radix schedule and twiddle table of its mixed-radix
 Stockham FFT (:func:`fft_radices`, :func:`fft_tables`), the real-transform
 twiddles and the windows with the inverse transform's 1/n folded in
 (:func:`kernel_consts`), and the launch plan (:func:`gl_fused_plan`, pure
-Python).
+Python). The kernel computes its 1/window-sum itself, bit-equal to
+:func:`_inv_wsum`, so a new F uploads nothing, and its frame buffer is one
+scratch a device and stream, grown to the largest F seen.
 
 The numpy table builders are copies of ``dsp/fft.py:_rdft_mats`` /
 ``_irdft_mats`` and ``griffin_lim_pallas.py:_gl_mats`` / ``_inv_wsum``
@@ -47,6 +57,7 @@ from exemplars_vc_tpu_torch.dsp.windows import get_window
 from exemplars_vc_tpu_torch.kernels.build import SMEM_LIMIT_BYTES, check, load_library
 
 GL_MAX_THREADS = 512     # threads a CTA (EVC_GL_MAX_THREADS)
+_MAX_INDEX = 1 << 22     # signal samples the kernel indexes (EVC_GL_MAX_INDEX)
 
 
 @lru_cache(maxsize=32)
@@ -231,26 +242,28 @@ def supports(n_frames: int, n_fft: int, hop: int) -> bool:
     return _smem_bytes(1, n_fft, hop) <= SMEM_LIMIT_BYTES
 
 
-def gl_fused_plan(n_frames: int, n_fft: int, hop: int, n_sms: int) -> dict:
-    """The kernel's launch plan on a card of ``n_sms`` SMs.
+def _centered_fits(n_frames: int, n_fft: int, hop: int) -> bool:
+    """Whether the centered signal, trimmed by n_fft//2 at both ends, is
+    longer than the reflect pad that restores it (``F.pad`` refuses a pad as
+    long as its input)."""
+    return hop * (n_frames - 1) + n_fft - 2 * (n_fft // 2) > n_fft // 2
 
-    One CTA owns a tile of ``tile`` consecutive frames and keeps the tile's
-    magnitudes and momentum state in shared memory for all iterations: the
-    smallest tile that leaves at most one CTA an SM. Threads: one for each
-    work item of the tile's widest step, a multiple of 32, at most 512 (the
-    kernel's float64 butterflies need up to 128 registers): an FFT pass has
-    M/R butterflies a frame (a direct DFT pass M outputs), the spectrum pass
-    M/2 + 1 items a frame (n_fft odd: bins). Raises ValueError where the
-    tile would not fit one block's shared memory (beyond ~18 frames an SM
-    at n_fft 400)."""
+
+def _plan(n_frames: int, n_fft: int, hop: int, n_sms: int, center: bool) -> dict | str:
+    """The launch plan of :func:`gl_fused_plan`, or why it refuses the shape."""
     if not supports(n_frames, n_fft, hop):
-        raise ValueError(f"gl_fused_plan: n_frames={n_frames}, n_fft={n_fft}, hop={hop} not "
-                         f"supported (hop must divide n_fft)")
+        return (f"n_frames={n_frames}, n_fft={n_fft}, hop={hop} not supported (hop must "
+                f"divide n_fft)")
+    if center and not _centered_fits(n_frames, n_fft, hop):
+        return (f"{n_frames} frames of hop {hop} are too short for the centered projection's "
+                f"reflect pad of {n_fft // 2}")
     tile = _cdiv(n_frames, max(n_sms, 1))
     smem = _smem_bytes(tile, n_fft, hop)
     if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"gl_fused_plan: {n_frames} frames need tiles of {tile} frames on "
-                         f"{n_sms} SMs, {smem} B of shared memory (limit {SMEM_LIMIT_BYTES})")
+        return (f"{n_frames} frames need tiles of {tile} frames on {n_sms} SMs, {smem} B of "
+                f"shared memory (limit {SMEM_LIMIT_BYTES})")
+    if hop * n_frames + n_fft >= _MAX_INDEX:
+        return f"{n_frames} frames of hop {hop} exceed the kernel's index range"
     m = transform_len(n_fft)
     radices = fft_radices(m)
     items = m // 2 + 1 if n_fft % 2 == 0 else n_fft // 2 + 1
@@ -260,17 +273,69 @@ def gl_fused_plan(n_frames: int, n_fft: int, hop: int, n_sms: int) -> dict:
             "smem_bytes": smem, "radices": radices}
 
 
+def fused_route(n_frames: int, n_fft: int, hop: int, n_iter: int, n_sms: int) -> bool:
+    """Whether ``griffin_lim``'s ``n_iter`` iterations of an (n_frames,
+    n_fft//2+1) magnitude on a card of ``n_sms`` SMs take the centered
+    kernel: n_iter > 0, hop divides n_fft, the tile fits shared memory (up
+    to 19 frames an SM at n_fft 400: 2,508 frames on 132 SMs) and the
+    signal is long enough for the reflect pad (F ≥ 4 at n_fft 400, hop 80).
+    Pure: the shape alone decides."""
+    return n_iter > 0 and isinstance(_plan(n_frames, n_fft, hop, n_sms, True), dict)
+
+
+def gl_fused_plan(n_frames: int, n_fft: int, hop: int, n_sms: int,
+                  center: bool = False) -> dict:
+    """The kernel's launch plan on a card of ``n_sms`` SMs.
+
+    One CTA owns a tile of ``tile`` consecutive frames and keeps the tile's
+    magnitudes and momentum state in shared memory for all iterations: the
+    smallest tile that leaves at most one CTA an SM. Threads: one for each
+    work item of the tile's widest step, a multiple of 32, at most 512 (the
+    kernel's float64 butterflies need up to 128 registers): an FFT pass has
+    M/R butterflies a frame (a direct DFT pass M outputs), the spectrum pass
+    M/2 + 1 items a frame (n_fft odd: bins). Raises ValueError where the
+    tile would not fit one block's shared memory (beyond 19 frames an SM
+    at n_fft 400), or, with ``center``, where the signal is too short for
+    the reflect pad. The plan does not depend on ``center``."""
+    plan = _plan(n_frames, n_fft, hop, n_sms, center)
+    if isinstance(plan, str):
+        raise ValueError(f"gl_fused_plan: {plan}")
+    return plan
+
+
 # ---------------------------------------------------------------------------
 # plain twin
 # ---------------------------------------------------------------------------
 
-def _project(sre, sim, bsr, bsi, bar, bai, inv_w, n_fft: int, hop: int):
-    """center=False projection on re/im planes: windowed irDFT frames,
-    overlap-add, × 1/window-sum, re-frame, windowed rDFT."""
+@lru_cache(maxsize=32)
+def _center_index(n_frames: int, n_fft: int, hop: int) -> np.ndarray:
+    """For each sample g of the centered projection's padded signal, the
+    overlap-add sample it takes: g, or its reflection in the first or last
+    sample kept by the trim of pad = n_fft//2 (the kernel's ``gl_source``)."""
+    L, pad = n_fft + hop * (n_frames - 1), n_fft // 2
+    g = np.arange(L)
+    return np.where(g < pad, 2 * pad - g, np.where(g >= L - pad, 2 * (L - pad - 1) - g, g))
+
+
+def _project(sre, sim, bsr, bsi, bar, bai, inv_w, n_fft: int, hop: int, center: bool = False):
+    """The projection on re/im planes: windowed irDFT frames, overlap-add,
+    × 1/window-sum, with ``center`` the trim and reflect pad as one gather,
+    re-frame, windowed rDFT."""
     frames = sre @ bsr + sim @ bsi                       # (F, n_fft)
     y = overlap_add(frames, hop) * inv_w                 # (n_fft + hop·(F−1),)
+    if center:
+        y = y[torch.as_tensor(_center_index(frames.shape[0], n_fft, hop), device=y.device)]
     Y = y.unfold(0, n_fft, hop)                          # (F, n_fft)
     return Y @ bar, Y @ bai
+
+
+def _project_reference(spec: torch.Tensor, n_fft: int, hop: int, window: str,
+                       center: bool) -> torch.Tensor:
+    F = spec.shape[0]
+    bsr, bsi, bar, bai, inv_w = _consts(F, n_fft, hop, window, spec.device)
+    rre, rim = _project(spec.real.float(), spec.imag.float(), bsr, bsi, bar, bai, inv_w,
+                        n_fft, hop, center)
+    return torch.complex(rre, rim)
 
 
 def project_nocenter_reference(spec: torch.Tensor, n_fft: int, hop: int,
@@ -278,18 +343,29 @@ def project_nocenter_reference(spec: torch.Tensor, n_fft: int, hop: int,
     """Plain twin of the kernel's center=False consistency projection
     (complex (F, bins) in and out) — the spec of what each fused iteration
     computes."""
-    F = spec.shape[0]
-    bsr, bsi, bar, bai, inv_w = _consts(F, n_fft, hop, window, spec.device)
-    rre, rim = _project(spec.real.float(), spec.imag.float(), bsr, bsi, bar, bai, inv_w,
-                        n_fft, hop)
-    return torch.complex(rre, rim)
+    return _project_reference(spec, n_fft, hop, window, False)
 
 
-def _check_args(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft: int, hop: int):
+def project_center_reference(spec: torch.Tensor, n_fft: int, hop: int,
+                             window: str = "hann") -> torch.Tensor:
+    """Plain twin of the kernel's center=True projection, ``stft(istft(s))
+    [:F]`` of ``dsp/stft.py`` (complex (F, bins) in and out); F must pass
+    the reflect pad's length rule (F ≥ 4 at n_fft 400, hop 80)."""
+    if not _centered_fits(spec.shape[0], n_fft, hop):
+        raise ValueError(f"project_center_reference: {spec.shape[0]} frames of hop {hop} are "
+                         f"too short for the reflect pad of {n_fft // 2}")
+    return _project_reference(spec, n_fft, hop, window, True)
+
+
+def _check_args(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft: int, hop: int,
+                center: bool):
     F, bins = magnitude.shape
     if not supports(F, n_fft, hop):
         raise ValueError(f"gl_angles_fused: n_frames={F}, n_fft={n_fft}, hop={hop} not "
                          f"supported (hop must divide n_fft)")
+    if center and not _centered_fits(F, n_fft, hop):
+        raise ValueError(f"gl_angles_fused: {F} frames of hop {hop} are too short for the "
+                         f"centered projection's reflect pad of {n_fft // 2}")
     if bins != n_fft // 2 + 1 or tuple(angles0.shape) != (F, bins):
         raise ValueError(f"gl_angles_fused: magnitude {tuple(magnitude.shape)} and angles0 "
                          f"{tuple(angles0.shape)} must both be (F, n_fft//2+1 = "
@@ -302,16 +378,17 @@ def _check_args(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft: int, hop:
 
 
 def gl_angles_fused_plain(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft: int,
-                          hop: int, n_iter: int, momentum: float,
-                          window: str = "hann") -> torch.Tensor:
-    """Plain twin of the fused kernel: n_iter projections plus momentum in
-    torch over the same bases. Returns complex (F, bins) unit phases.
+                          hop: int, n_iter: int, momentum: float, window: str = "hann",
+                          center: bool = False) -> torch.Tensor:
+    """Plain twin of the fused kernel: n_iter projections (``center`` picks
+    which, module docstring) plus momentum in torch over the same bases.
+    Returns complex (F, bins) unit phases.
 
     It computes in float32, or in float64 when the magnitude is float64 (the
     accuracy reference the kernel and the float32 twin are both held to:
     the phase of a bin where |t| nearly cancels carries float32 rounding far
     above 1e-4 within a few iterations)."""
-    _check_args(magnitude, angles0, n_fft, hop)
+    _check_args(magnitude, angles0, n_fft, hop, center)
     dtype = torch.float64 if magnitude.dtype == torch.float64 else torch.float32
     mag = torch.clamp(magnitude.to(dtype), min=0.0)
     consts = [c.to(dtype) for c in _consts(mag.shape[0], n_fft, hop, window, mag.device)]
@@ -321,7 +398,7 @@ def gl_angles_fused_plain(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft:
     pre = torch.zeros_like(are)
     pim = torch.zeros_like(aim)
     for _ in range(n_iter):
-        rre, rim = _project(mag * are, mag * aim, *consts, n_fft, hop)
+        rre, rim = _project(mag * are, mag * aim, *consts, n_fft, hop, center)
         tre = rre - mom * pre
         tim = rim - mom * pim
         pre, pim = rre, rim
@@ -365,51 +442,71 @@ def grid_sync_probe(grid: int, n: int, device: torch.device) -> None:
         check(fn(grid, n, stream), "evc_grid_sync_probe", lib)
 
 
-@lru_cache(maxsize=16)
-def _device_consts(n_frames: int, n_fft: int, hop: int, window: str, device: torch.device):
-    """The kernel's constant table and the flat 1/window-sum on ``device``."""
-    return (torch.as_tensor(kernel_consts(n_fft, window), device=device),
-            torch.as_tensor(_inv_wsum(n_frames, n_fft, hop, window).reshape(-1), device=device))
+@lru_cache(maxsize=8)
+def _device_consts(n_fft: int, window: str, device: torch.device) -> torch.Tensor:
+    """The kernel's constant table on ``device`` (it depends on n_fft
+    alone, not on F)."""
+    return torch.as_tensor(kernel_consts(n_fft, window), device=device)
+
+
+# The kernel's (2, F, n_fft) float64 frame buffer: 8.7 MB at F = 1361. A
+# torch.empty for each new F can make the caching allocator call cudaMalloc
+# (a 17 ms stall on a served request), so one buffer a (device, stream) is
+# kept and grown to the largest F seen. Launches on one stream run in order,
+# and the kernel writes every frame it reads within the iteration, so each
+# launch may reuse what its predecessor left.
+_frame_buffers: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _frame_buffer(device: torch.device, stream: int, doubles: int) -> torch.Tensor:
+    buf = _frame_buffers.get((device.index, stream))
+    if buf is None or buf.numel() < doubles:
+        buf = torch.empty(doubles, dtype=torch.float64, device=device)
+        _frame_buffers[(device.index, stream)] = buf
+    return buf
 
 
 def gl_angles_fused(magnitude: torch.Tensor, angles0: torch.Tensor, n_fft: int, hop: int,
                     n_iter: int, momentum: float, window: str = "hann",
-                    _plan: dict | None = None) -> torch.Tensor:
+                    _plan: dict | None = None, center: bool = False) -> torch.Tensor:
     """Complex (F, bins) magnitude (clamped at 0) + initial unit phases →
-    final unit phases after ``n_iter`` fused fast-GL iterations; on CUDA one
-    cooperative launch of ``evc_gl_fused`` with :func:`gl_fused_plan`
-    (counted in ``gl_angles_fused.launches``). Raises ValueError where hop
-    does not divide n_fft. ``_plan`` overrides the plan (another tile gives
-    equal bits); the C entry refuses a plan the card cannot launch (a grid
-    larger than the co-resident CTAs would deadlock) and the call raises."""
+    final unit phases after ``n_iter`` fused fast-GL iterations over the
+    ``center`` projection (module docstring); on CUDA one cooperative launch
+    of ``evc_gl_fused`` with :func:`gl_fused_plan` (counted in
+    ``gl_angles_fused.launches``). Raises ValueError where hop does not
+    divide n_fft, or where a centered signal is too short for its reflect
+    pad. ``_plan`` overrides the plan (another tile gives equal bits); the C
+    entry refuses a plan the card cannot launch (a grid larger than the
+    co-resident CTAs would deadlock) and the call raises."""
     if magnitude.device.type == "cpu":
         return gl_angles_fused_plain(magnitude, angles0, n_fft, hop, n_iter, momentum,
-                                     window)
+                                     window, center)
     if magnitude.device.type != "cuda":
         raise ValueError(f"gl_angles_fused: unsupported device {magnitude.device}")
-    _check_args(magnitude, angles0, n_fft, hop)
+    _check_args(magnitude, angles0, n_fft, hop, center)
     dev = magnitude.device
     F, bins = magnitude.shape
     plan = _plan or gl_fused_plan(F, n_fft, hop,
-                                  torch.cuda.get_device_properties(dev).multi_processor_count)
+                                  torch.cuda.get_device_properties(dev).multi_processor_count,
+                                  center)
     mag = torch.clamp(magnitude.float(), min=0.0).contiguous()
     ang0 = angles0.to(torch.complex64).contiguous()
     out = torch.empty_like(ang0)
-    frames = torch.empty((2, F, n_fft), dtype=torch.float64, device=dev)
-    consts, inv_w = _device_consts(F, n_fft, hop, window, dev)
+    consts = _device_consts(n_fft, window, dev)
     radices = (ctypes.c_int * max(1, len(plan["radices"])))(*plan["radices"])
     mom = float(momentum) / (1.0 + float(momentum))
     lib = _lib()
     fn = lib.evc_gl_fused
     fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 6 + [ci] * 5 + [ctypes.POINTER(ctypes.c_int), ci, ci, ctypes.c_double,
-                                         vp]
+    fn.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.POINTER(ctypes.c_int), ci, ci, ctypes.c_double,
+                                         ci, vp]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        frames = _frame_buffer(dev, stream, 2 * F * n_fft)
         check(fn(mag.data_ptr(), ang0.data_ptr(), out.data_ptr(), frames.data_ptr(),
-                 consts.data_ptr(), inv_w.data_ptr(), F, n_fft, hop, plan["tile"],
-                 plan["threads"], radices, len(plan["radices"]), int(n_iter), mom, stream),
+                 consts.data_ptr(), F, n_fft, hop, plan["tile"], plan["threads"], radices,
+                 len(plan["radices"]), int(n_iter), mom, int(center), stream),
               "evc_gl_fused", lib)
     gl_angles_fused.launches += 1
     return out

@@ -10,7 +10,19 @@ differ by ≤ 2.4e-7, float32 cos implementations); phases agree within
 rtol 1e-4, atol 1e-5 after 6 iterations (float32 matmuls in another order,
 amplified by the normalisation), the projection within the
 ``test_gl_pallas_projection_matches_istft_stft`` tolerance, and quality by
-the spectral-convergence rule of ``test_gl_pallas_quality_parity_with_xla_gl``."""
+the spectral-convergence rule of ``test_gl_pallas_quality_parity_with_xla_gl``.
+
+The centered projection (``center=True``, the production's) is held to
+``stft(istft(s))[:F]`` of both packages within the center=False
+projection's tolerance. Its iterations, run by the float64 twin on speech,
+give audio within 1e-4 relative L2 of the port's CPU ``griffin_lim`` and of
+the JAX package's (read: ≤ 7.3e-6 after 60 iterations): both loops round in
+float32, and the momentum carries that rounding into the phase of bins whose
+update nearly cancels, so they are held to the float64 twin, not to each
+other's bits. The float32 twin's mean phase error against the float64 one
+may be at most twice the production loop's own (+ 1e-7; read 1.5×)."""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +32,18 @@ import torch
 import exemplars_vc_tpu.dsp.griffin_lim_pallas as jglp
 from exemplars_vc_tpu.dsp.fft import _irdft_mats as j_irdft_mats
 from exemplars_vc_tpu.dsp.fft import _rdft_mats as j_rdft_mats
+from exemplars_vc_tpu.dsp.griffin_lim import griffin_lim as j_griffin_lim
+from exemplars_vc_tpu.dsp.stft import istft as j_istft
+from exemplars_vc_tpu.dsp.stft import stft as j_stft
 from exemplars_vc_tpu_torch.dsp import griffin_lim_cuda as tglc
 from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
 from exemplars_vc_tpu_torch.dsp.stft import istft, stft
 from exemplars_vc_tpu_torch.dsp.windows import get_window
+from exemplars_vc_tpu_torch.io.wav import read_wav
+
+N_SMS = 132
+SPEECH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "artifacts",
+                      "audio", "heldout_100162_stft_parity.wav")
 
 
 def _inputs(seed, F, n_fft, zero_rows=()):
@@ -119,3 +139,101 @@ def test_quality_parity_with_production_griffin_lim():
     y_p = istft(mag * a_p, n_fft=n_fft, hop_length=hop)
     assert torch.isfinite(y_p).all()
     assert sc(y_p) < 1.3 * sc(y_x) + 0.02, (sc(y_p), sc(y_x))
+
+
+# F = 4 is the fewest frames the route takes at n_fft 400, hop 80 (the
+# trimmed signal, 240 samples, must outlast the 200-sample reflect pad); at
+# F ≤ 132 a tile is one frame, and frame 0's mirrored samples sum frames up
+# to n_fft/hop = 5 away, beyond the r − 1 = 4 neighbours of the
+# center=False overlap-add; 48 is the stream's shape, 620 a served one
+# (tile 5); (6, 45, 15) takes an odd n_fft
+@pytest.mark.parametrize("F,n_fft,hop", [(4, 400, 80), (5, 400, 80), (48, 400, 80),
+                                         (620, 400, 80), (10, 40, 8), (7, 32, 8),
+                                         (6, 45, 15)])
+def test_center_projection_matches_istft_stft_and_jax(F, n_fft, hop):
+    rng = np.random.default_rng(F + n_fft)
+    nb = n_fft // 2 + 1
+    spec = (rng.standard_normal((F, nb)) + 1j * rng.standard_normal((F, nb))
+            ).astype(np.complex64)
+    got = tglc.project_center_reference(torch.as_tensor(spec), n_fft, hop)
+    t = torch.as_tensor(spec)
+    ref = stft(istft(t, n_fft=n_fft, hop_length=hop), n_fft=n_fft, hop_length=hop)[:F]
+    assert got.shape == ref.shape == (F, nb)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-3, atol=1e-4)
+    jspec = jnp.asarray(spec)
+    jref = j_stft(j_istft(jspec, n_fft=n_fft, hop_length=hop), n_fft=n_fft,
+                  hop_length=hop)[:F]
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=1e-3, atol=1e-4)
+    # the centered and uncentered projections differ at the edge frames only
+    plain = tglc.project_nocenter_reference(t, n_fft, hop).numpy()
+    r = n_fft // hop
+    if F > 2 * r:
+        np.testing.assert_allclose(got.numpy()[r:F - r], plain[r:F - r], rtol=1e-3, atol=1e-4)
+    assert not np.allclose(got.numpy()[0], plain[0], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_iter,silent", [(20, 0), (60, 3)])
+def test_centered_twin_matches_production_griffin_lim(n_iter, silent):
+    """The float64 centered twin, then the final ISTFT, against the port's
+    CPU ``griffin_lim`` and the JAX package's on 1 s of in-repo speech (the
+    magnitude scaled by 1.1, as a converted one is not consistent), seeded
+    with its phase; ``silent`` leading frames zeroed as digital silence."""
+    x, _ = read_wav(SPEECH)
+    n_fft, hop = 400, 80
+    S = stft(torch.as_tensor(x[:16000], dtype=torch.float32), n_fft=n_fft, hop_length=hop)
+    mag = torch.abs(S) * 1.1
+    mag[:silent] = 0.0
+    a = torch.abs(S)
+    ang0 = torch.where(a > 0.0, S / torch.clamp(a, min=1e-16),
+                       torch.ones((), dtype=torch.complex64))
+    y_port, a_port = griffin_lim(mag, n_fft=n_fft, hop_length=hop, n_iter=n_iter,
+                                 init_phase=S, return_phase=True)
+    y_jax = np.asarray(j_griffin_lim(jnp.asarray(mag.numpy()), n_fft=n_fft, hop_length=hop,
+                                     n_iter=n_iter, init_phase=jnp.asarray(S.numpy())))
+    a64 = tglc.gl_angles_fused_plain(mag.double(), ang0.to(torch.complex128), n_fft, hop,
+                                     n_iter, 0.9, center=True)
+    a32 = tglc.gl_angles_fused(mag, ang0, n_fft, hop, n_iter, 0.9, center=True)
+    y64 = istft((mag.double() * a64).to(torch.complex64), n_fft=n_fft, hop_length=hop)
+
+    def rel(u, v):
+        return float(np.linalg.norm(np.asarray(u) - np.asarray(v)) / np.linalg.norm(v))
+
+    assert y64.shape == y_port.shape == y_jax.shape
+    assert rel(y_port, y64.numpy()) <= 1e-4
+    assert rel(y_jax, y64.numpy()) <= 1e-4
+    e32 = float((a32 - a64.to(torch.complex64)).abs().mean())
+    e_port = float((a_port - a64.to(torch.complex64)).abs().mean())
+    assert e32 <= 2 * e_port + 1e-7, (e32, e_port)
+
+
+@pytest.mark.parametrize("F,n_fft,hop,n_iter,want", [
+    (201, 400, 80, 300, "fused"), (620, 400, 80, 300, "fused"), (1361, 400, 80, 300, "fused"),
+    (48, 400, 80, 60, "fused"), (16, 400, 80, 60, "fused"), (4, 400, 80, 300, "fused"),
+    (2508, 400, 80, 300, "fused"), (2509, 400, 80, 300, "graphed"),
+    (3000, 400, 80, 300, "graphed"), (620, 400, 96, 300, "graphed"),
+    (3, 400, 80, 300, "graphed"), (620, 400, 80, 0, "eager"),
+])
+def test_route_is_a_function_of_the_shape(F, n_fft, hop, n_iter, want):
+    """Serve shapes (201–1361 × 201) and the stream's (16–48 × 201) take
+    the fused kernel; 3,000 frames (a tile beyond shared memory), a hop
+    that does not divide n_fft, a signal too short for the reflect pad, and
+    n_iter = 0 do not (``griffin_lim`` sends the refused shapes to its
+    graphed loop, n_iter = 0 to its eager one)."""
+    assert tglc.fused_route(F, n_fft, hop, n_iter, N_SMS) == (want == "fused")
+    if want == "graphed":
+        with pytest.raises(ValueError):
+            tglc.gl_fused_plan(F, n_fft, hop, N_SMS, center=True)
+    else:
+        assert tglc.gl_fused_plan(F, n_fft, hop, N_SMS, center=True) == \
+            tglc.gl_fused_plan(F, n_fft, hop, N_SMS)
+
+
+def test_center_refuses_a_signal_shorter_than_its_pad():
+    mag, ang = _inputs(2, 3, 400)
+    with pytest.raises(ValueError, match="reflect pad"):
+        tglc.gl_angles_fused(torch.as_tensor(mag), torch.as_tensor(ang), 400, 80, 2, 0.9,
+                             center=True)
+    with pytest.raises(ValueError, match="reflect pad"):
+        tglc.project_center_reference(torch.as_tensor(ang), 400, 80)
+    # center=False takes any F
+    tglc.gl_angles_fused(torch.as_tensor(mag), torch.as_tensor(ang), 400, 80, 2, 0.9)
