@@ -16,8 +16,7 @@ and Griffin-Lim(300). It reports
   (at least 7) conversions that each build the dictionary anew, with the
   max/min spread;
 - ``cold_s``: the first conversion of this process, with the nvcc builds it
-  had to make (``kernels_built_s``; empty when ``build/kernels`` was warm)
-  and its graph captures;
+  had to make (``kernels_built_s``; empty when ``build/kernels`` was warm);
 - ``stages_synced_s``: one conversion with the device fenced around each
   stage;
 - ``heldout_mcd_db``: the DTW-aligned MCD against the held-out target (a
@@ -50,7 +49,6 @@ into the result, and prints one JSON line to stdout.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
 import statistics
@@ -163,7 +161,6 @@ def main() -> None:
     from exemplars_vc_tpu_torch.pipelines.serve import Converter
     from exemplars_vc_tpu_torch.pipelines.stream import StreamingConverter
 
-    gl_mod = importlib.import_module("exemplars_vc_tpu_torch.dsp.griffin_lim")
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -200,9 +197,7 @@ def main() -> None:
 
         res, cold = synced(lambda: convert_utterance(cfg, fresh("cold"), data, wav_path,
                                                      nb_file=8, device=dev))
-        captures_cold = gl_mod.griffin_lim.captures
-        log(f"cold run: {cold:.3f} s (nvcc builds {dict(build.build_seconds)}, "
-            f"{captures_cold} graph captures)")
+        log(f"cold run: {cold:.3f} s (nvcc builds {dict(build.build_seconds)})")
         hots = []
         for k in range(runs):
             res, s = synced(lambda k=k: convert_utterance(cfg, fresh(k), data, wav_path,
@@ -222,7 +217,7 @@ def main() -> None:
         conv = Converter(cfg, fresh("serve"), data, nb_file=8, device=dev)
         paths = [wav_path] + list_speaker_wavs(data, "SF1")[:3]
         conv.convert(wav_path)
-        conv.convert_batch(paths)            # warm: a graph capture a new length
+        conv.convert_batch(paths)            # warm: cuFFT plans a new length
         convert_s = [synced(lambda: conv.convert(wav_path))[1] for _ in range(runs)]
         batch_s = [synced(lambda: conv.convert_batch(paths))[1] for _ in range(3)]
         serial_s = [sum(synced(lambda p=p: conv.convert(p))[1] for p in paths)
@@ -257,7 +252,6 @@ def main() -> None:
             "push_s_p50": round(pct(steady, 0.5), 5),
             "push_s_p90": round(pct(steady, 0.9), 5),
             "push_real_time_factor_p50": round(pct(steady, 0.5) / chunk_s, 4),
-            "gl_graph_captures": gl_mod.griffin_lim.captures,
         }
         log(f"serving: {serving}")
 
@@ -279,7 +273,6 @@ def main() -> None:
             "steady_state_max_over_min": round(max(hots) / min(hots), 3),
             "cold_s": round(cold, 3),
             "kernels_built_s": {k: round(v, 2) for k, v in build.build_seconds.items()},
-            "gl_graph_captures_cold": captures_cold,
             "audio_s": round(total_audio, 2),
             "nmf_shape_F_K_D": [F, K, D],
             "nmf_iters": int(res_sync.n_iter),

@@ -20,8 +20,9 @@ from exemplars_vc_tpu_torch.dsp.windows import get_window
 
 @lru_cache(maxsize=16)
 def _window(name: str, n_fft: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """The periodic window on ``device``, made once (read only): a CUDA
-    graph capture of Griffin-Lim's loop may not copy it from the host."""
+    """The periodic window on ``device``, made once (read only), so that a
+    transform on the card (each of Griffin-Lim's eager iterations makes two)
+    uploads no window from the host."""
     return get_window(name, n_fft, periodic=True, device=device, dtype=dtype)
 
 

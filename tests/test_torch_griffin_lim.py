@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
+from exemplars_vc_tpu_torch.dsp.griffin_lim_cuda import fused_route
 from exemplars_vc_tpu_torch.dsp.stft import stft
 from test_torch_separate import key_kw
 
@@ -94,3 +95,28 @@ def test_random_init_from_a_key_matches_jax(seed):
         assert _rel_l2(y.numpy(), np.asarray(ref_y)) < tol, n_iter
         assert _rel_l2(mag * ph.numpy(), mag * np.asarray(ref_ph)) < tol, n_iter
     assert _rel_l2(ph.numpy(), np.asarray(ref_ph)) < 1e-3
+
+
+@pytest.mark.parametrize("hop,n_frames,seed", [(96, 67, "source"), (96, 67, 3),
+                                               (80, 2509, "source")])
+def test_refused_shapes_match_jax(hop, n_frames, seed):
+    """Shapes the fused kernel refuses (a hop that does not divide n_fft;
+    one frame more than its tiles hold at hop 80), from the source phase or
+    from ``PRNGKey(3)``: the eager loop the card runs for them is the one
+    run here, held to the JAX function after 8 iterations on the signal
+    and on mag·phase."""
+    x = _signal(5, (n_frames - 1) * hop)
+    mag = np.abs(np.asarray(jstft.stft(jnp.asarray(x), hop_length=hop))) * 1.1
+    assert mag.shape[0] == n_frames
+    assert not fused_route(n_frames, 400, hop, 8, n_sms=132)      # an H100's SMs
+    if seed == "source":
+        spec = np.array(jstft.stft(jnp.asarray(_signal(6, len(x))), hop_length=hop))
+        jk, tk = {"init_phase": jnp.asarray(spec)}, {"init_phase": torch.as_tensor(spec)}
+    else:
+        jk, tk = key_kw(seed)
+    ref_y, ref_ph = jgl.griffin_lim(jnp.asarray(mag), hop_length=hop, n_iter=8,
+                                    length=len(x), return_phase=True, **jk)
+    y, ph = griffin_lim(torch.as_tensor(mag), hop_length=hop, n_iter=8, length=len(x),
+                        return_phase=True, **tk)
+    assert _rel_l2(y.numpy(), np.asarray(ref_y)) < 1e-4
+    assert _rel_l2(mag * ph.numpy(), mag * np.asarray(ref_ph)) < 1e-4

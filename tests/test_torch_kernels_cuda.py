@@ -23,16 +23,14 @@ centered kernel (the production's projection) at the served and streamed
 shapes, 300 and 60 iterations, is held to the float64 twin by the same
 mean-phase rule alone: over hundreds of iterations the float32 twin drifts
 from float64 by more than 1e-4. The production ``griffin_lim`` takes the
-centered kernel for those shapes (and then no graph is captured), and
-replays CUDA graphs for the others (here a hop that does not divide n_fft),
-where it must equal its eager loop bit for bit (the same kernels in the same
-order)."""
+centered kernel for those shapes, and runs its eager loop for the others (a
+hop that does not divide n_fft, more frames than the kernel's tiles hold),
+where it must equal ``_fused=False`` bit for bit and hold no memory after."""
 
 import numpy as np
 import pytest
 import torch
 
-from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.align import dtw_cuda
 from exemplars_vc_tpu_torch.align.dtw import pairwise_sqdist
 from exemplars_vc_tpu_torch.dsp import griffin_lim_cuda
@@ -674,25 +672,24 @@ def test_gl_fused_centered_matches_twin(cuda, F, n_iter):
 
 @pytest.mark.cuda
 def test_griffin_lim_new_length_takes_the_fused_kernel(cuda):
-    """A served length the graph cache has never seen: one launch of the
-    centered kernel, no capture, no ``griffin_lim.capture`` span; its
-    phases no farther from the float64 twin than the eager float32 loop's
-    (the same mean-phase rule)."""
+    """A served length: one launch of the centered kernel and no span of
+    its own; its phases no farther from the float64 twin than the eager
+    float32 loop's (the same mean-phase rule)."""
     from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
     from exemplars_vc_tpu_torch.dsp.stft import stft
 
     rng = np.random.default_rng(13)
     S = stft(torch.as_tensor(rng.standard_normal(16400).astype(np.float32), device=cuda))
     mag = torch.abs(S) * 1.1
-    caps, fused = griffin_lim.captures, griffin_lim.fused
+    fused = griffin_lim.fused
     launches = griffin_lim_cuda.gl_angles_fused.launches
     recs = _traced_spans(lambda: griffin_lim(mag, n_iter=25, init_phase=S))
-    assert griffin_lim.captures == caps and recs == []
+    assert recs == []
     assert griffin_lim.fused == fused + 1
     assert griffin_lim_cuda.gl_angles_fused.launches == launches + 1
     y, a = griffin_lim(mag, n_iter=25, init_phase=S, return_phase=True)
-    y_e, a_e = griffin_lim(mag, n_iter=25, init_phase=S, return_phase=True, _graph=False)
-    assert griffin_lim.captures == caps and y.shape == y_e.shape
+    y_e, a_e = griffin_lim(mag, n_iter=25, init_phase=S, return_phase=True, _fused=False)
+    assert y.shape == y_e.shape
     a0 = torch.where(S.abs() > 0, S / torch.clamp(S.abs(), min=1e-16),
                      torch.ones((), dtype=torch.complex64, device=cuda))
     a64 = griffin_lim_cuda.gl_angles_fused_plain(mag.double(), a0.to(torch.complex128), 400,
@@ -702,42 +699,35 @@ def test_griffin_lim_new_length_takes_the_fused_kernel(cuda):
     assert e_f <= 2 * e_e + 1e-7, (e_f, e_e)
 
 
-GRAPHED_HOP = 96     # does not divide n_fft 400: griffin_lim replays graphs
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("seeded", [True, False])
-def test_griffin_lim_graph_equals_eager(cuda, seeded):
-    """The production loop replays captured graphs on a CUDA tensor whose
-    shape the fused kernel does not take: bit-equal to the eager loop (the
-    same kernels in the same order), with a remainder graph (2 blocks + 5
-    iterations), and a second call of the shape captures nothing."""
-    from exemplars_vc_tpu_torch.dsp.griffin_lim import GRAPH_BLOCK, griffin_lim
+@pytest.mark.parametrize("hop,n_frames", [(96, 200), (80, 2509)])
+def test_refused_shapes_take_the_eager_loop(cuda, hop, n_frames):
+    """A shape the fused kernel refuses (a hop that does not divide n_fft;
+    one frame more than its tiles hold at hop 80) runs the eager loop on the
+    card: no fused call or launch, bit-equal to ``_fused=False``, and no
+    memory held once the result is freed."""
+    from exemplars_vc_tpu_torch.dsp.griffin_lim import griffin_lim
     from exemplars_vc_tpu_torch.dsp.stft import stft
 
     rng = np.random.default_rng(11)
-    n = 16000 + 96 * int(seeded)            # a shape of its own for each case
-    hop = GRAPHED_HOP
-    S = stft(torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=cuda),
-             hop_length=hop)
+    x = rng.standard_normal((n_frames - 1) * hop).astype(np.float32)
+    S = stft(torch.as_tensor(x, device=cuda), hop_length=hop)
+    assert S.shape[0] == n_frames
     mag = torch.abs(S) * 1.1
-    n_iter = 2 * GRAPH_BLOCK + 5
-
-    def run(m, graph):
-        if seeded:
-            return griffin_lim(m, hop_length=hop, n_iter=n_iter, init_phase=S,
-                               return_phase=True, _graph=graph)
-        return griffin_lim(m, hop_length=hop, n_iter=n_iter, key=prng.PRNGKey(3),
-                           return_phase=True, _graph=graph)
-
-    before = griffin_lim.captures
-    y_g, a_g = run(mag, True)
-    assert griffin_lim.captures == before + 2
-    y_e, a_e = run(mag, False)
-    assert torch.equal(a_g, a_e) and torch.equal(y_g, y_e)
-    y_g2, _ = run(mag * 0.5, True)
-    assert griffin_lim.captures == before + 2
-    assert torch.equal(y_g2, run(mag * 0.5, False)[0])
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert not griffin_lim_cuda.fused_route(n_frames, 400, hop, 25, n_sms)
+    torch.cuda.synchronize(cuda)
+    mem0 = torch.cuda.memory_allocated(cuda)
+    fused, launches = griffin_lim.fused, griffin_lim_cuda.gl_angles_fused.launches
+    y, a = griffin_lim(mag, hop_length=hop, n_iter=25, init_phase=S, return_phase=True)
+    assert griffin_lim.fused == fused
+    assert griffin_lim_cuda.gl_angles_fused.launches == launches
+    y_e, a_e = griffin_lim(mag, hop_length=hop, n_iter=25, init_phase=S, return_phase=True,
+                           _fused=False)
+    assert torch.equal(a, a_e) and torch.equal(y, y_e)
+    del y, a, y_e, a_e
+    torch.cuda.synchronize(cuda)
+    assert torch.cuda.memory_allocated(cuda) == mem0
 
 
 # -- the program's spans on the card --------------------------------------------
@@ -816,29 +806,6 @@ def test_span_device_times_lie_within_their_roots(cuda, card_converters, kind):
         stages = [s for s in recs if s["parent"] == root["id"]]
         assert len(stages) == (2 if kind == "stream" else 3)
         assert sum(s["device_ms"] for s in stages) <= root["device_ms"]
-
-
-@pytest.mark.cuda
-def test_a_new_griffin_lim_length_records_a_capture_span(cuda):
-    """A length the graph cache lacks, at a hop the fused kernel does not
-    take, is a miss (one span) and two captures (a block of 10 and a
-    remainder of 5: two spans); the same length again records none."""
-    from exemplars_vc_tpu_torch.dsp.griffin_lim import GRAPH_BLOCK, griffin_lim
-    from exemplars_vc_tpu_torch.dsp.stft import stft
-
-    rng = np.random.default_rng(12)
-    hop = GRAPHED_HOP
-    S = stft(torch.as_tensor(rng.standard_normal(16240).astype(np.float32), device=cuda),
-             hop_length=hop)
-    mag = torch.abs(S)
-    n_iter = GRAPH_BLOCK + 5
-
-    def call():
-        griffin_lim(mag, hop_length=hop, n_iter=n_iter, init_phase=S)
-    first = _traced_spans(call)
-    assert [s["name"] for s in first] == ["griffin_lim.capture"] * 3
-    assert all(s["host_ms"] > 0.0 and s["device_ms"] is not None for s in first)
-    assert _traced_spans(call) == []
 
 
 @pytest.mark.cuda

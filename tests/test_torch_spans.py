@@ -110,7 +110,7 @@ def test_conversion_records_its_spans(kind, converters, corpus):
     assert all(s["device_ms"] is None for s in recs)     # off the card
     stages = _children(recs, root)
     assert [s["name"] for s in stages] == ["features", "solve", "synthesis"]
-    features, solve, _ = stages
+    features, solve, synthesis = stages
     assert solve["attrs"] == {"residual": kind == "world"}
     assert all(s["host_ms"] <= root["host_ms"] for s in stages)
     nmf = [s for s in recs if s["name"] == "nmf"]
@@ -122,7 +122,7 @@ def test_conversion_records_its_spans(kind, converters, corpus):
     world = [s["name"] for s in _children(recs, features)]
     assert world == (["world.f0", "world.cheaptrick", "world.d4c"] if kind == "world" else [])
     assert len(nmf) == (2 if kind == "world" else 1)
-    assert not [s for s in recs if s["name"] == "griffin_lim.capture"]   # graphs: the card only
+    assert _children(recs, synthesis) == []
 
 
 def test_push_records_its_spans(converters, corpus):

@@ -7,7 +7,7 @@ repository, on one GPU, in turns (other, this, this, other).
 ``DIR`` is the root of another checkout (for example the parent commit,
 unpacked with ``git archive`` into a git-ignored directory). Each turn is a
 fresh process with that checkout first on ``sys.path``: it builds the
-stand-in corpus, converts once (kernel builds, graph captures), then times
+stand-in corpus, converts once (kernel builds, cuFFT plans), then times
 ``pipelines.convert._aligned_dicts`` from ``--runs`` fresh stores with the
 device fenced before and after (the ``dicts`` stage of
 ``convert_utterance(sync_stages=True)``: pair MFCC, batched DTW, the store's

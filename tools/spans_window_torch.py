@@ -20,9 +20,7 @@ closed loop under ``torch.profiler`` (CPU and CUDA activity, inside the
   (None where the program keeps no spans);
 - ``idle_gaps``: the ten longest gaps as ``benchmark.harness.trace``
   names them, and ``gaps_named_by_spans``, how many carry a span's name;
-- ``free_s`` / ``free_in_capture_s``: the window's ``cudaFree`` and
-  ``cudaFreeHost`` seconds, and the part inside ``griffin_lim.capture``
-  annotations;
+- ``free_s``: the window's ``cudaFree`` and ``cudaFreeHost`` seconds;
 - ``spans``: per span name its count and mean host and device ms.
 
 One JSON line a seed on stdout (and appended to ``--out``). ``--small``
@@ -43,37 +41,28 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 FREES = ("cudaFree", "cudaFreeHost")
-CAPTURE = "griffin_lim.capture"
-
-
-def _overlap(s: float, t: float, spans: list) -> float:
-    return sum(max(0.0, min(t, b) - max(s, a)) for a, b in spans)
 
 
 def read_trace(path: str, names: set) -> dict:
-    """The free calls inside the window and inside capture annotations, and
-    the idle gaps, from an exported Chrome trace."""
+    """The free calls inside the window, and the idle gaps, from an
+    exported Chrome trace."""
     from benchmark.harness.trace import WINDOW, summarize
 
     with open(path) as f:
         events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X"]
     win = next(e for e in events if e.get("name") == WINDOW)
     w0, w1 = float(win["ts"]), float(win["ts"]) + float(win["dur"])
-    captures = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
-                if e.get("cat") == "user_annotation" and e.get("name") == CAPTURE]
     free = defaultdict(float)
-    inside = defaultdict(float)
     for e in events:
         if e.get("name") in FREES and e.get("cat") in ("cuda_runtime", "cuda_driver"):
             s, t = max(float(e["ts"]), w0), min(float(e["ts"]) + float(e["dur"]), w1)
             if t > s:
                 free[e["name"]] += (t - s) * 1e-6
-                inside[e["name"]] += _overlap(s, t, captures) * 1e-6
     summary = summarize(path) or {}
     gaps = summary.get("idle_gaps", [])
     return {"busy_s": summary.get("busy_s"), "window_s": summary.get("window_s"),
             "idle_gaps": gaps, "gaps_named_by_spans": sum(g[0] in names for g in gaps),
-            "free_s": dict(free), "free_in_capture_s": dict(inside)}
+            "free_s": dict(free)}
 
 
 def main(argv=None) -> int:
@@ -107,7 +96,7 @@ def main(argv=None) -> int:
     has_spans = hasattr(profiling, "cursor")
     root_name = "push" if params["entry"] == "stream" else "convert"
     names = {"convert", "push", "features", "solve", "synthesis", "nmf", "world.f0",
-             "world.cheaptrick", "world.d4c", CAPTURE}
+             "world.cheaptrick", "world.d4c"}
     workdir = tempfile.mkdtemp(prefix="evc-spans-")
     store = ArtifactStore(os.path.join(workdir, "store"))
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
