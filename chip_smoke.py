@@ -39,7 +39,12 @@ Phases (any failure exits non-zero and prints no result line):
    16-row tile), 620 × 201 and 620 × 1025 (its 128-row tile), and the
    quality preset's K = 71,680 at 620 × 201 and 1360 × 201, within 1e-5 of
    its twin, two launches equal bit for bit, the device time of 20 launches
-   beside ``torch.matmul``'s and the bound, with each shape's plan tile; with the
+   beside ``torch.matmul``'s and the bound, with each shape's plan tile;
+   ``nmf_kl_update`` (the KL step after its recon) at the quality preset's
+   620 and 1360 × 71,680 × 201, within 1e-5 max relative per element of its
+   twin (cuBLAS R·Aᵀ, the division, the product), in place and repeat
+   launches equal bit for bit, timed (20 launches) beside those three ops,
+   ``nmf_recon`` at the same shape and the bound; with the
    launch plans of the persistent split-K ``nmf_recon`` (CTAs, tile, units,
    K pieces and groups, CTAs the card holds at once), of the fused cluster
    kernel (grid, cluster, tile, shared bytes, clusters at once) and of ``nmf_update``
@@ -107,9 +112,10 @@ Phases (any failure exits non-zero and prints no result line):
    after 300 is reported (the iterations grow the float32 rounding
    difference between a stacked and a single solve). A ``Converter`` from
    ``load_config(preset="quality")`` (KL, its reconstruction on
-   ``nmf_recon`` and the rest plain torch, ``h_smooth=2``) converts the
-   held-out utterance: finite stand-in MCD, and the solve launches
-   ``nmf_recon`` 1 + n_iter times and nothing else of the MU kernels; then
+   ``nmf_recon`` and its update on ``nmf_kl_update``, ``h_smooth=2``)
+   converts the held-out utterance: finite stand-in MCD, and the solve
+   launches ``nmf_recon`` 1 + n_iter times, ``nmf_kl_update`` n_iter times
+   and nothing else of the MU kernels; then
    at its served width, a ``Converter`` of the preset on the benchmark's
    20-pair corpus at ``nb_file=20`` (K must be 71,680) converts it, timed,
    under the same launch gate. The
@@ -338,7 +344,9 @@ and ``dfw_bound_ms``, and the wavefront its tile
 mode's launches in phase 9, ``tile_launches_parallel``, its time with and
 without codes, bound and largest error against the twin; ``nmf_recon`` and
 ``nmf_update`` their largest error against the twin at phase 9's shards,
-``shard_max_abs_err``); the last line is
+``shard_max_abs_err``; the port-only ``nmf_kl_update``, ``replaces`` null,
+its serving launches and its time, its three ops' (``plain_ms``), bound and
+error at 620 × 71,680 × 201); the last line is
 ``{"ok": true, "device": {...}}``. The stand-in MCD is not comparable to the
 real corpus's.
 """
@@ -614,6 +622,16 @@ def nmf_world_shape(torch, np, dev, rng, n_sms) -> dict:
     return out
 
 
+def per_launch_ms(fn, n=20, reps=3) -> float:
+    """The profiler's device time of ``n`` launches of ``fn()`` in a row, a
+    launch (median of ``reps`` readings): at F = 16 the host takes longer to
+    issue a launch than the kernel runs, so CUDA events around the loop
+    would time the host."""
+    fn()
+    return statistics.median(device_ms(lambda: [fn() for _ in range(n)]) / n
+                             for _ in range(reps))
+
+
 def nmf_recon_served(torch, np, dev, rng, n_sms) -> dict:
     """``nmf_recon`` at the benchmark cells' shapes: over the 14,336-exemplar
     dictionary a stream chunk (F = 16, D = 201: the TM = 1 tile), a
@@ -626,14 +644,6 @@ def nmf_recon_served(torch, np, dev, rng, n_sms) -> dict:
     readings) beside ``torch.matmul`` and the bound."""
     from exemplars_vc_tpu_torch.factorize.nmf_cuda import (
         co_resident_clusters, nmf_recon, nmf_recon_plain, nmf_recon_plan)
-
-    def per_launch_ms(fn, n=20, reps=3):
-        # the profiler's device time of n launches in a row: at F = 16 the
-        # host takes longer to issue a launch than the kernel runs, so CUDA
-        # events around the loop would time the host
-        fn()
-        return statistics.median(device_ms(lambda: [fn() for _ in range(n)]) / n
-                                 for _ in range(reps))
 
     out = {}
     for F, K, D in ((16, 14_336, 201), (620, 14_336, 201), (620, 14_336, 1025),
@@ -664,6 +674,79 @@ def nmf_recon_served(torch, np, dev, rng, n_sms) -> dict:
         del A, H, P, P1, P2
     torch.cuda.empty_cache()
     return out
+
+
+def nmf_kl_served(torch, np, dev, rng, n_sms) -> dict:
+    """``nmf_kl_update`` at the quality cell's shapes, K = 71,680 (the
+    dictionary and its four VTLP copies, each block ending in zero rows, so
+    den = EPS there) and D = 201: F = 620 (a 3.9 s request) and 1360 (the
+    longest). Each is held within 1e-5 max relative per element of its twin
+    (``nmf_kl_update_plain``: the step's old ops, cuBLAS R·Aᵀ into an F × K
+    buffer, the division by den and the product with H), in place equal to
+    out of place and two launches equal bit for bit, and timed by the
+    profiler's device time of 20 launches in a row (median of 3 readings)
+    beside those three ops, ``nmf_recon`` at the same shape and the bound
+    (2·F·K·D + 2·F·K operations; R, A, den and H read, out written)."""
+    from exemplars_vc_tpu_torch.factorize.nmf_cuda import (
+        EPS, co_resident_clusters, nmf_kl_operand, nmf_kl_update, nmf_kl_update_plain,
+        nmf_kl_update_plan, nmf_recon)
+
+    out = {}
+    for F, K, D in ((620, 71_680, 201), (1360, 71_680, 201)):
+        pl = nmf_kl_update_plan(F, K, D, n_sms)
+        A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
+        A.reshape(5, K // 5, D)[:, -393:] = 0.0
+        A = torch.as_tensor(A, device=dev)
+        H = torch.as_tensor(rng.uniform(0.0, 0.02, (F, K)).astype(np.float32), device=dev)
+        R = torch.as_tensor(np.abs(rng.standard_normal((F, D))).astype(np.float32), device=dev)
+        den = A.sum(dim=1)[None, :]
+        den = torch.where(den == 0.0, EPS, den)
+        At = nmf_kl_operand(A)   # as the solve makes it, once
+        ref = nmf_kl_update_plain(R, At, H, den)
+        got = nmf_kl_update(R, At, H, den)
+        Hin = H.clone()
+        nmf_kl_update(R, At, Hin, den, out=Hin)
+        nz = ref != 0
+        e = float(((got - ref).abs()[nz] / ref.abs()[nz]).max())
+        e_abs = float((got - ref).abs().max())
+        zeros = bool((got[~nz] == 0).all())
+        same = bool(torch.equal(got, nmf_kl_update(R, At, H, den)) and torch.equal(got, Hin))
+        buf = torch.empty_like(H)
+        ms = per_launch_ms(lambda: nmf_kl_update(R, At, H, den, out=buf))
+        trio = per_launch_ms(lambda: nmf_kl_update_plain(R, At, H, den, out=buf))
+        recon = per_launch_ms(lambda: nmf_recon(H, A))
+        b_ms, b_by = bound(4 * (F * D + K * D + K + 2 * F * K), 2 * F * K * D + 2 * F * K)
+        say(f"nmf_kl_update at the served shape F={F} K={K} D={D}: plan tile {pl['tile']}, "
+            f"thread tile {pl['thread_tile']}, {pl['grid'][0]} CTAs "
+            f"({co_resident_clusters('nmf_kl_update', pl, F, K, D)} at once), {pl['groups']} an "
+            f"F tile of {pl['tiles']} tiles, R {'staged' if pl['r_staged'] else 'resident'}, "
+            f"{pl['smem_bytes']} B shared; max rel err a element {e:.3g} (limit 1e-5), zeros "
+            f"kept {zeros}, in place and repeat equal bits {same}; {ms * 1e3:.1f} us a launch "
+            f"(device, 20 in a row), the three ops it replaces {trio * 1e3:.1f} us, nmf_recon "
+            f"{recon * 1e3:.1f} us (kernel / recon {ms / recon:.3f}), bound {b_ms * 1e3:.1f} us "
+            f"({b_by}), roofline share {b_ms / ms:.4f} (the three ops {b_ms / trio:.4f})")
+        if not (e <= 1e-5 and zeros and same):
+            fail(f"nmf_kl_update at F={F} K={K} D={D}: rel err {e:.3g}, zeros {zeros}, "
+                 f"equal bits {same}")
+        out[f"{F}x{K}x{D}"] = dict(tile=pl["tile"], rel_err=e, max_abs_err=e_abs, ms=ms,
+                                   trio_ms=trio, recon_ms=recon, bound_ms=b_ms, bound_by=b_by)
+        del A, At, H, R, den, ref, got, Hin, buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def kl_row(kl: dict, launches_serving: int) -> dict:
+    """The ``kernels`` line's row of ``nmf_kl_update``, which replaces no TPU
+    kernel: the serving phase's launches, and from ``nmf_kl_served`` at 620 ×
+    71,680 × 201 its time, the three ops it replaces (``plain_ms``), bound and
+    largest error against the twin."""
+    r = kl["620x71680x201"]
+    return {"name": "nmf_kl_update", "route": "cuda",
+            "source": "exemplars_vc_tpu_torch/csrc/nmf_mu.cu", "replaces": None,
+            "launches_serving": launches_serving, "shape": [620, 71_680, 201],
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["rel_err"], "ms": r["ms"],
+            "plain_ms": r["trio_ms"], "recon_ms": r["recon_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"]}
 
 
 def gl_centered(torch, np, dev, rng, n_sms: int) -> dict:
@@ -1024,6 +1107,7 @@ def phase_kernels(torch, np, dev) -> dict:
     torch.cuda.empty_cache()
     out["_nmf_world"] = nmf_world_shape(torch, np, dev, rng, n_sms)
     out["_nmf_served"] = nmf_recon_served(torch, np, dev, rng, n_sms)
+    out["_nmf_kl"] = nmf_kl_served(torch, np, dev, rng, n_sms)
 
     # the fused Griffin-Lim against its twins, 6 iterations under the PERF.md
     # §2 gates, at n_fft 48 (M = 24 = 8 x 3, a radix-3 pass) and at the main
@@ -1099,7 +1183,8 @@ def phase_kernels(torch, np, dev) -> dict:
         f"{fmt_ms(prod[False][1])})")
     out["_gl_centered"] = gl_centered(torch, np, dev, rng, n_sms)
     mcd = out.pop("_dtw_mcd")
-    extra = {k: out.pop(k) for k in ("_dtw_long", "_nmf_world", "_nmf_served", "_gl_centered")}
+    extra = {k: out.pop(k) for k in ("_dtw_long", "_nmf_world", "_nmf_served", "_nmf_kl",
+                                     "_gl_centered")}
     for name, r in out.items():
         say(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
@@ -1414,6 +1499,7 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     from dataclasses import replace
 
     from exemplars_vc_tpu_torch.config import load_config
+    from exemplars_vc_tpu_torch.factorize.nmf_cuda import nmf_kl_update
     from exemplars_vc_tpu_torch.io.store import ArtifactStore, list_speaker_wavs
     from exemplars_vc_tpu_torch.io.wav import read_wav
     from exemplars_vc_tpu_torch.pipelines import convert as convert_mod
@@ -1457,15 +1543,17 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
         if audio.shape != x.shape or not np.isfinite(audio).all():
             fail(f"serving: {what}: audio shape {audio.shape} vs input {x.shape}, or not finite")
 
-    def kl_solve_gate(after, before, n_iter, where):
-        # one recon a step and one for the first error, no update or fused kernel
+    def kl_solve_gate(after, before, n_iter, where, kl_updates):
+        # one recon a step and one for the first error, one KL update a step,
+        # no Frobenius update or fused kernel
         moved = {name: after[name] - before[name] for name in after}
-        if moved["nmf_recon"] != 1 + n_iter or moved["nmf_update"] or \
-                any(moved[name] for name in fused):
-            fail(f"serving: the KL solve {where} ran {n_iter} steps and launched {moved}")
+        if moved["nmf_recon"] != 1 + n_iter or kl_updates != n_iter or \
+                moved["nmf_update"] or any(moved[name] for name in fused):
+            fail(f"serving: the KL solve {where} ran {n_iter} steps and launched {moved}, "
+                 f"nmf_kl_update {kl_updates} times")
 
     convert_mod._DICTS_MEMO.clear()
-    for fn in all_fns.values():
+    for fn in (*all_fns.values(), nmf_kl_update):
         fn.launches = 0
     builds0 = built()
 
@@ -1564,15 +1652,15 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
         f"kernel): n_iter {bf.nmf_iters}, error {bf.nmf_error:.6g} against float32's "
         f"{first.nmf_error:.6g}; warm wall median {statistics.median(bf_walls):.4f} ms")
 
-    # the quality preset: KL (its P from nmf_recon, the rest plain torch by
-    # design), the same warps, h_smooth=2
+    # the quality preset: KL (its P from nmf_recon, its update from
+    # nmf_kl_update), the same warps, h_smooth=2
     conv_q, q_prepare_ms = timed(lambda: Converter(cfg_quality, store, data, nb_file=8,
                                                    device=dev))
     if built() != prepared or conv_q.dicts["stft"][0].shape[0] != 30_720:
         fail("serving: the quality preset shares the warped dictionaries and must not rebuild")
-    before = counts()
+    before, kl0 = counts(), nmf_kl_update.launches
     q, q_first_ms = timed(lambda: conv_q.convert(src))
-    kl_solve_gate(counts(), before, q.nmf_iters, "at K = 30,720")
+    kl_solve_gate(counts(), before, q.nmf_iters, "at K = 30,720", nmf_kl_update.launches - kl0)
     q_walls = [timed(lambda: conv_q.convert(src))[1] for _ in range(3)]
     check_audio("quality convert", q.audio, sigs[0])
     qb = conv_q.convert_batch(paths[:2])
@@ -1581,7 +1669,7 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     ref_sig, _ = read_wav(tar)
     mcd_q = mcd_between_signals(q.audio, ref_sig, cfg_quality, dev)
     mcd_f = mcd_between_signals(first.audio, ref_sig, cfg_frob, dev)
-    say(f"serving: quality preset (KL on nmf_recon, the rest plain torch; 4 warps; h_smooth=2): "
+    say(f"serving: quality preset (KL on nmf_recon and nmf_kl_update; 4 warps; h_smooth=2): "
         f"prepare {q_prepare_ms:.2f} ms (memoised dictionaries), n_iter {q.nmf_iters}, first "
         f"call {q_first_ms:.2f} ms, warm wall median {statistics.median(q_walls):.4f} ms")
     say(f"serving: stand-in preset MCD {mcd_q:.4f} dB; Frobenius + 4 warps {mcd_f:.4f} dB; the "
@@ -1604,9 +1692,9 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     K20 = conv_q20.dicts["stft"][0].shape[0]
     if K20 != 71_680:
         fail(f"serving: the quality preset over 20 pairs has K = {K20}, not 71,680")
-    before = counts()
+    before, kl0 = counts(), nmf_kl_update.launches
     q20, q20_first_ms = timed(lambda: conv_q20.convert(src))
-    kl_solve_gate(counts(), before, q20.nmf_iters, "at K = 71,680")
+    kl_solve_gate(counts(), before, q20.nmf_iters, "at K = 71,680", nmf_kl_update.launches - kl0)
     check_audio("quality convert at K = 71,680", q20.audio, sigs[0])
     q20_walls = [timed(lambda: conv_q20.convert(src))[1] for _ in range(3)]
     say(f"serving: quality preset at its served width, 20 pairs: K = {K20}, prepare "
@@ -1653,7 +1741,7 @@ def phase_serving(torch, np, dev, root: str, data: str, counted: dict, fused: di
     say(f"serving: a second Converter from a fresh store: prepare_seconds "
         f"{conv2.prepare_seconds:.4f} (the first, {conv.prepare_seconds:.4f}, was the first use "
         f"in the process of the expansion's kernels)")
-    launches = counts()
+    launches = {**counts(), "nmf_kl_update": nmf_kl_update.launches}
     say(f"serving: launches of the whole phase {launches} (every served and streamed length "
         f"takes the centered Griffin-Lim kernel)")
     if launches["gl_angles_fused"] < 1:
@@ -3416,7 +3504,7 @@ def main() -> None:
             if name == "dtw_wavefront" else {}),
          **({"shard_max_abs_err": par["shard_max_abs_err"][name]}
             if name in par["shard_max_abs_err"] else {})}
-        for name in sources]}))
+        for name in sources] + [kl_row(kern["_nmf_kl"], serving["nmf_kl_update"])]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-// Fixed-dictionary Frobenius MU NMF on Hopper: the two kernels of one
-// multiplicative update  H <- H * Num / ((H.A).A^T), and below them the
-// same update as one kernel (nmf_fused_mu_kernel, the opt-in fused path).
+// Fixed-dictionary MU NMF on Hopper: the two kernels of one Frobenius
+// multiplicative update  H <- H * Num / ((H.A).A^T), below them the same
+// update as one kernel (nmf_fused_mu_kernel, the opt-in fused path), and
+// the KL step after its recon (nmf_kl_update_kernel).
 //
 // Replaces: exemplars_vc_tpu/factorize/nmf_pallas.py:nmf_activations_pallas,
 // its kernels _recon_kernel (:34, P = H.A, also the reconstruction of the
@@ -14,6 +15,12 @@
 //               (the update runs in place): each element of H is read and
 //               then written by the same thread, and by no other.
 //   nmf_fused_mu: nmf_update(nmf_recon(H, A), A, H, Num, l1) in one launch.
+//   nmf_kl_update: out (F, K) = H * ((R . A^T) / den), R = X / max(P, EPS)
+//               (F, D), den (K) = the row sums of A + l1 with 0 -> EPS, A
+//               read as At = A^T (D, K); out may be H. Replaces no TPU
+//               kernel (the JAX package leaves the KL step to XLA); on the
+//               card it replaces cuBLAS's R.A^T and two F x K elementwise
+//               passes.
 //
 // Parity is fp32 (TF32 off), so the tensor cores are out of reach and every
 // kernel here runs on the FMA pipes.
@@ -72,6 +79,26 @@
 // CTAs an SM (30 % with one), and at K = 7680 the last of three waves of
 // 264 CTAs, half full.
 //
+// nmf_kl_update shares no code with nmf_update (the two updates read three
+// F x K arrays against two and have other epilogues). The KL solve runs it
+// 150 times a served request at K = 71,680, D = 201, F ~ 200 to 1,360: a
+// 2.F.K.D product whose reduction is short (13 slices of 16) and whose
+// epilogue reads and writes 178 MB at F = 620. So a persistent CTA an SM
+// keeps its F tile of R (128 x 208, 107 KB) resident in shared memory,
+// streams At's K tiles through a ring that runs on across tiles, and copies
+// each tile's H and den into shared memory under the tile's FMAs; an 8 x 8
+// register tile makes 64 FMAs of 4 float4 shared loads. At D > 240 the R
+// block does not fit, and R is staged in d slices beside At.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; the SM clock held 1980 MHz
+// under it): the FMA pipe, at about half of the fp32 peak (620 x 71,680 x
+// 201: ~0.54 ms, 1.04x nmf_recon there). Probes of the design at that
+// shape: the FMAs and shared loads alone take ~0.42 ms; 4-byte copies of
+// A's unaligned rows cost 0.10 ms more (hence At and 16-byte copies); the
+// slice's wait and barrier ~0.06 ms; the epilogue (64 IEEE divisions a
+// thread a tile) ~0.04 ms. An 8 x 16 register tile, register double
+// buffering, partial unrolling, a barrier every two slices, two CTAs an SM
+// and an epilogue spread over the next tile's slices were each slower.
+//
 // The C entries refuse, before launching, a plan that does not match the
 // compiled tiling or cannot launch (a recon grid the card cannot hold at
 // once, a cluster above 8, shared memory above the opt-in limit, no cluster
@@ -107,6 +134,13 @@ namespace cg = cooperative_groups;
 #define EVC_UPDATE_BN 128
 #define EVC_UPDATE_NS 4       // nmf_update's cp.async ring depth
 #define EVC_UPDATE_MINB 2     // nmf_update CTAs an SM (caps registers at 128)
+#define EVC_KL_NT 256         // nmf_kl_update: 16 x 16 threads
+#define EVC_KL_TM 8           // nmf_kl_update register tile: rows (F) of a thread
+#define EVC_KL_TN 8           // nmf_kl_update register tile: columns (K) of a thread
+#define EVC_KL_BN 128         // nmf_kl_update K tile: 16 thread columns of 4, twice
+#define EVC_KL_BK 16          // nmf_kl_update: d depth of one staged slice
+#define EVC_KL_NS 4           // nmf_kl_update's cp.async ring depth
+#define EVC_KL_AP (EVC_KL_BN + 4)  // row pitch of its d-major A stage
 
 // The launch plan the Python wrapper computes (nmf_cuda._Plan mirrors it).
 struct EvcPlan {
@@ -119,7 +153,8 @@ struct EvcPlan {
   int k_bounds[EVC_MAX_SPLIT + 1];  // the groups' K bounds (fused)
   int long_pieces, rem_kb, pieces, groups;       // the recon's K pieces (recon, fused)
   int single_ctas, range_ctas, range_units;      // the recon's CTAs and their units
-  int tiles_f, tiles_d;                          // the recon's output tiles
+  int tiles_f, tiles_d;    // output tiles: the recon's F and D, the KL update's F and K
+  int r_staged;            // nmf_kl_update: R staged in d slices beside A (else resident)
 };
 
 // The K pieces both split-K kernels share (nmf_cuda._piece_bounds): over
@@ -799,6 +834,247 @@ nmf_fused_mu_kernel(const float* H, const float* __restrict__ A,
   }
 }
 
+// ---------------------------------------------------------------------------
+// nmf_kl_update: out = H * ((R.A^T) / den), the KL MU step after its recon
+// (R = X / max(P, EPS), den = the row sums of A + l1 with 0 -> EPS).
+//
+// Replaces no TPU kernel: the JAX package runs its KL step in XLA. On the
+// card it replaces three ops of each step: cuBLAS's R.A^T into an F x K
+// buffer, the division by den and the product with H, in place.
+//
+// It reads A as At = A^T (D x K, contiguous), which the solve makes once:
+// A's rows of 804 bytes (D = 201) are not 16-byte aligned, and 4-byte copies
+// of them cost 18 % of the kernel's time at 620 x 71,680 x 201 (on an H100);
+// At's rows give a stage's 16 x 128 slice in 16-byte copies, two a thread.
+//
+// A persistent grid: CTA c owns F tile c % tiles_f and walks the K tiles
+// c / tiles_f, + groups, + 2 groups, ... (the plan's `groups` CTAs an F
+// tile), so the CTAs of one K tile run together and read its slice of At
+// from L2 once a round. Where the R block fits beside the ring (D <= 240),
+// it is loaded once, d-major, and stays in shared memory; the ring
+// streams At only, a d slice of 16 rows of the K tile a stage. Otherwise
+// (r_staged) each stage carries R's d slice too. The ring runs on across
+// tile boundaries (slice s of the CTA is d slice s % n_d of its tile
+// s / n_d), so the next tile's At is in flight during an epilogue. Each
+// thread sums an 8 x 8 register tile: rows ty * 8 + i, columns tx * 4 + j and 64 + tx * 4 + j, over d ascending from 0.0f
+// with one fmaf each; a d step is two float4 loads of R and two of At for
+// 64 FMAs. The tile's H and den are copied to shared memory (16-byte
+// cp.async where K % 4 == 0 and H and out are 16-byte aligned, else 4-byte)
+// in the group of the tile's first slice, so they land under the tile's
+// FMAs; the epilogue then takes the IEEE quotient acc / den[k] and its
+// product with H, the order and operations of G.div_(den) and H.mul_(G),
+// and stores float4s where aligned (8 lanes of a warp: 128 contiguous bytes
+// of a row), else element by element. Only the d order of the sum can
+// differ from cuBLAS's.
+// In place: every element of H is read (into the H tile) and written by
+// the one CTA that owns it, the write after the barrier that follows the
+// read, so out may be H.
+// ---------------------------------------------------------------------------
+
+template <bool RS>
+struct KlTile {
+  static constexpr int BM = 16 * EVC_KL_TM;          // F rows of a tile
+  static constexpr int RP = BM + 4;                  // row pitch of the d-major R block or stage
+  static constexpr int HT = BM * EVC_KL_BN;          // floats: the H tile [BM][BN]
+  static constexpr int AST = EVC_KL_BK * EVC_KL_AP;  // floats: a stage's At [BK][BN + 4]
+  static constexpr int STAGE = AST + (RS ? EVC_KL_BK * RP : 0);
+  static_assert(RP % 4 == 0 && HT % 4 == 0 && AST % 4 == 0 && STAGE % 4 == 0,
+                "16-byte aligned parts");
+  // floats of shared memory: the H tile, the tile's den, the ring and,
+  // resident, R [Dp][RP]
+  static __host__ __device__ size_t floats(int Dp) {
+    return (size_t)HT + EVC_KL_BN + (size_t)EVC_KL_NS * STAGE + (RS ? 0 : (size_t)Dp * RP);
+  }
+  // a warp is 4 thread rows x 8 thread columns: a d step's float4 loads
+  // touch 4 distinct R quads and 8 contiguous At quads
+  static __device__ __forceinline__ void yx(int tid, int& ty, int& tx) {
+    const int w = tid >> 5, l = tid & 31;
+    ty = (w >> 1) * 4 + (l >> 3);
+    tx = (w & 1) * 8 + (l & 7);
+  }
+};
+
+// H and out may alias (in-place update), so neither is __restrict__. vec:
+// H and out are read and written as float4s; vec_a: At is copied in 16 bytes.
+template <bool RS>
+__global__ void __launch_bounds__(EVC_KL_NT, 1)
+nmf_kl_update_kernel(const float* __restrict__ R, const float* __restrict__ At, const float* H,
+                     const float* __restrict__ den, float* out, int F, int K, int D,
+                     int tiles_f, int tiles_k, int groups, int vec, int vec_a) {
+  using T = KlTile<RS>;
+  constexpr int TM = EVC_KL_TM, BM = T::BM, BN = EVC_KL_BN, BK = EVC_KL_BK, NS = EVC_KL_NS;
+  constexpr int NT = EVC_KL_NT;
+  extern __shared__ float4 evc_smem4[];
+  float* Hs = reinterpret_cast<float*>(evc_smem4);   // [BM][BN]: the tile's H
+  float* Ds = Hs + T::HT;                            // [BN]: the tile's den
+  float* ring = Ds + BN;                             // NS stages: At (and R) d-major
+  float* Rb = ring + NS * T::STAGE;                  // [Dp][RP]: R resident, d-major
+  const int tid = threadIdx.x;
+  int ty, tx;
+  T::yx(tid, ty, tx);
+  const int row0 = (blockIdx.x % tiles_f) * BM;
+  const int kt0 = blockIdx.x / tiles_f;
+  const int n_d = D > BK ? (D + BK - 1) / BK : 1;
+  const int n_slices = (tiles_k - kt0 + groups - 1) / groups * n_d;
+
+  auto load = [&](int s, int j, int ds) {   // slice s: d slice ds of tile j
+    float* As = ring + (s % NS) * T::STAGE;
+    const int col0 = (kt0 + j * groups) * BN, d0 = ds * BK;
+    if (vec_a) {   // K % 4 == 0: a float4 of a row is in K or wholly past it
+#pragma unroll
+      for (int i = 0; i < BK * BN / 4 / NT; ++i) {
+        const int e = tid + NT * i, dd = e / (BN / 4), q = e % (BN / 4);
+        const int d = d0 + dd, k = col0 + 4 * q;
+        const bool ok = d < D && k < K;
+        cp_async_f32x4(As + dd * EVC_KL_AP + 4 * q, ok ? At + (size_t)d * K + k : At, ok);
+      }
+    } else {   // a warp reads 32 consecutive k of a row
+#pragma unroll
+      for (int i = 0; i < BK * BN / NT; ++i) {
+        const int e = tid + NT * i, dd = e / BN, c = e % BN;
+        const int d = d0 + dd, k = col0 + c;
+        const bool ok = d < D && k < K;
+        cp_async_f32(As + dd * EVC_KL_AP + c, ok ? At + (size_t)d * K + k : At, ok);
+      }
+    }
+    if constexpr (RS) {   // R's d slice: a warp reads 16 consecutive d of two rows
+      float* Rs = As + T::AST;
+      const int m0 = tid >> 4, d = d0 + (tid & 15);
+      const float* r = R + (size_t)(row0 + m0) * D + d;
+#pragma unroll
+      for (int i = 0; i < BM / 16; ++i) {
+        const bool ok = d < D && row0 + m0 + 16 * i < F;
+        cp_async_f32(Rs + (tid & 15) * T::RP + m0 + 16 * i, ok ? r + (size_t)16 * i * D : R, ok);
+      }
+    }
+  };
+  auto load_h = [&](int j) {   // tile j's H into Hs and its den into Ds
+    const int col0 = (kt0 + j * groups) * BN;
+    if (tid < BN) {
+      const bool ok = col0 + tid < K;
+      cp_async_f32(Ds + tid, ok ? den + col0 + tid : den, ok);
+    }
+    if (vec) {   // K % 4 == 0: a float4 is in K or wholly past it
+#pragma unroll
+      for (int i = 0; i < BM * BN / 4 / NT; ++i) {
+        const int e = tid + NT * i, m = e / (BN / 4), q = e % (BN / 4);
+        const int f = row0 + m, k = col0 + 4 * q;
+        const bool ok = f < F && k < K;
+        cp_async_f32x4(Hs + m * BN + 4 * q, ok ? H + (size_t)f * K + k : H, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < BM * BN / NT; ++i) {
+        const int e = tid + NT * i, m = e / BN, c = e % BN;
+        const int f = row0 + m, k = col0 + c;
+        const bool ok = f < F && k < K;
+        cp_async_f32(Hs + m * BN + c, ok ? H + (size_t)f * K + k : H, ok);
+      }
+    }
+  };
+
+  if constexpr (!RS) {   // the resident R block, in the first group: a warp reads along d
+    const int Dp = n_d * BK;
+    for (int e = tid; e < BM * Dp; e += NT) {
+      const int m = e / Dp, d = e - m * Dp, f = row0 + m;
+      const bool ok = f < F && d < D;
+      cp_async_f32(Rb + (size_t)d * T::RP + m, ok ? R + (size_t)f * D + d : R, ok);
+    }
+  }
+  int lj = 0, lds = 0;   // the next slice to load: d slice lds of tile lj
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n_slices) {
+      load(s, lj, lds);
+      if (++lds == n_d) {
+        lds = 0;
+        ++lj;
+      }
+    }
+    cp_async_commit();
+  }
+  float acc[TM][EVC_KL_TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < EVC_KL_TN; ++c) acc[i][c] = 0.f;
+  int j = 0, ds = 0;     // the slice to compute: d slice ds of tile j
+  for (int s = 0; s < n_slices; ++s) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();   // slice s has landed everywhere; slice s - 1 and the last epilogue are done
+    if (s + NS - 1 < n_slices) {
+      load(s + NS - 1, lj, lds);
+      if (++lds == n_d) {
+        lds = 0;
+        ++lj;
+      }
+    }
+    if (ds == 0) load_h(j);   // into the H tile the last epilogue has read
+    cp_async_commit();
+    const float* As = ring + (s % NS) * T::STAGE + tx * 4;
+    const float* Rs = (RS ? ring + (s % NS) * T::STAGE + T::AST : Rb + (size_t)ds * BK * T::RP) +
+                      ty * TM;
+#pragma unroll
+    for (int dd = 0; dd < BK; ++dd) {
+      float rv[TM];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 r4 = *reinterpret_cast<const float4*>(Rs + dd * T::RP + 4 * q);
+        rv[4 * q] = r4.x;
+        rv[4 * q + 1] = r4.y;
+        rv[4 * q + 2] = r4.z;
+        rv[4 * q + 3] = r4.w;
+      }
+      const float4 a0 = *reinterpret_cast<const float4*>(As + dd * EVC_KL_AP);
+      const float4 a1 = *reinterpret_cast<const float4*>(As + dd * EVC_KL_AP + BN / 2);
+      const float av[EVC_KL_TN] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int c = 0; c < EVC_KL_TN; ++c) acc[i][c] = fmaf(rv[i], av[c], acc[i][c]);
+    }
+    if (++ds < n_d) continue;
+    // ---- tile j is summed: out = H * (acc / den) on it ----------------------
+    // The tile's H and den went out with its first slice's loads, NS - 1
+    // slices ahead, so the wait above covered them where the tile has NS
+    // slices or more.
+    if (n_d < NS) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int col0 = (kt0 + j * groups) * BN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = h * (BN / 2) + tx * 4, k = col0 + c;
+      if (k >= K) continue;
+      const float4 dv = *reinterpret_cast<const float4*>(Ds + c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int m = ty * TM + i, f = row0 + m;
+        if (f >= F) break;
+        const float4 hv = *reinterpret_cast<const float4*>(Hs + m * BN + c);
+        const float v[4] = {hv.x * (acc[i][4 * h] / dv.x), hv.y * (acc[i][4 * h + 1] / dv.y),
+                            hv.z * (acc[i][4 * h + 2] / dv.z), hv.w * (acc[i][4 * h + 3] / dv.w)};
+        const size_t idx = (size_t)f * K + k;
+        if (vec) {   // k + 3 < K too: K and k are multiples of 4
+          *reinterpret_cast<float4*>(out + idx) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (k + q < K) out[idx + q] = v[q];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < EVC_KL_TN; ++c) acc[i][c] = 0.f;
+    ds = 0;
+    ++j;
+  }
+  cp_async_wait<0>();
+}
+
 // The last plan an instance accepted on a device: a repeated plan skips the
 // shared-memory attribute and the occupancy query (about 11 us a call).
 struct EvcMemo {
@@ -992,6 +1268,48 @@ static int evc_fused_any(const float* H, const float* A, const float* Num, float
   }
 }
 
+// Check the plan (its tiles, its groups of CTAs an F tile, its grid), then
+// launch, or with query != nullptr only report how many CTAs the card holds
+// at once.
+template <bool RS>
+static int evc_kl(const float* R, const float* At, const float* H, const float* den, float* out,
+                  int F, int K, int D, const EvcPlan* p, cudaStream_t stream, int* query) {
+  using T = KlTile<RS>;
+  static EvcMemo memo;
+  if (F < 1 || K < 1 || D < 0) return (int)cudaErrorInvalidValue;
+  const int tiles_f = (F + T::BM - 1) / T::BM, tiles_k = (K + EVC_KL_BN - 1) / EVC_KL_BN;
+  const int g = p->groups;
+  if (p->tiles_f != tiles_f || p->tiles_d != tiles_k || g < 1 || g > tiles_k ||
+      (long long)g * tiles_f != p->grid_x)
+    return (int)cudaErrorInvalidValue;
+  const int n_d = D > EVC_KL_BK ? (D + EVC_KL_BK - 1) / EVC_KL_BK : 1;
+  cudaLaunchConfig_t cfg;
+  int ctas = 0;
+  const int e = evc_check_plan(nmf_kl_update_kernel<RS>, memo, p, T::BM, EVC_KL_BN,
+                               EVC_KL_NT, EVC_KL_NS, dim3(p->grid_x, 1, 1),
+                               sizeof(float) * T::floats(n_d * EVC_KL_BK), stream,
+                               EvcLaunch::plain, nullptr, &cfg, query ? query : &ctas);
+  if (e != 0 || query) return e;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(H) | reinterpret_cast<uintptr_t>(out);
+  const int vec = K % 4 == 0 && ptrs % 16 == 0;
+  const int vec_a = K % 4 == 0 && reinterpret_cast<uintptr_t>(At) % 16 == 0;
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, nmf_kl_update_kernel<RS>, R, At, H, den,
+                                            out, F, K, D, tiles_f, tiles_k, g, vec, vec_a);
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}
+
+// plan->r_staged picks whether R is staged with A or resident
+static int evc_kl_any(const float* R, const float* At, const float* H, const float* den,
+                      float* out, int F, int K, int D, const EvcPlan* p, cudaStream_t s,
+                      int* query) {
+  switch (p->r_staged) {
+    case 0: return evc_kl<false>(R, At, H, den, out, F, K, D, p, s, query);
+    case 1: return evc_kl<true>(R, At, H, den, out, F, K, D, p, s, query);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 extern "C" {
 
 const char* evc_error_string(int code) {
@@ -1031,6 +1349,19 @@ int evc_nmf_fused_mu(const float* H, const float* A, const float* Num, float* ou
 int evc_nmf_fused_mu_clusters(int F, int K, int D, const EvcPlan* plan, int* clusters) {
   return evc_fused_any(nullptr, nullptr, nullptr, nullptr, F, K, D, 0.f, plan, nullptr,
                        clusters);
+}
+
+// At: A transposed, (D, K) contiguous; den holds K floats; out may be H
+// (in place).
+int evc_nmf_kl_update(const float* R, const float* At, const float* H, const float* den,
+                      float* out, int F, int K, int D, const EvcPlan* plan, void* stream) {
+  return evc_kl_any(R, At, H, den, out, F, K, D, plan, (cudaStream_t)stream, nullptr);
+}
+
+// How many CTAs of the plan the card holds at once (no cluster).
+int evc_nmf_kl_update_clusters(int F, int K, int D, const EvcPlan* plan, int* clusters) {
+  return evc_kl_any(nullptr, nullptr, nullptr, nullptr, nullptr, F, K, D, plan, nullptr,
+                    clusters);
 }
 
 }  // extern "C"

@@ -19,11 +19,13 @@ Frobenius update runs through :mod:`exemplars_vc_tpu_torch.factorize.nmf_cuda`
 into the next update: H does not change between a check and the step after
 it, and the recon kernel sums in one order, so that P has the same bits. A
 solve therefore takes 1 + n_iter recons. The KL solve takes its P from the
-same recon, carried the same way; the rest of its step (X ⊘ P, the product
-with Aᵀ on cuBLAS, the division and the update, in place) is plain torch,
-since the JAX package has no kernel for it. So is the ``work_dtype`` solve,
-which stores H, A and the numerator in bfloat16 and accumulates products in
-float32 (in the JAX package it is XLA outside any Pallas kernel).
+same recon, carried the same way, forms R = X ⊘ max(P, EPS) in torch and
+updates H in place by ``nmf_kl_update`` (on the card one kernel for R·Aᵀ,
+the division and the product; on the CPU its twin, ``torch.mm`` then the
+division and the product). The
+``work_dtype`` solve, which stores H, A and the numerator in bfloat16 and
+accumulates products in float32, is plain torch (in the JAX package it is
+XLA outside any Pallas kernel).
 
 :func:`prune_topk_refine` and :func:`sharpen_activations` are the two
 shape-preserving refinements of a solved H.
@@ -35,7 +37,8 @@ from typing import NamedTuple
 
 import torch
 
-from exemplars_vc_tpu_torch.factorize.nmf_cuda import EPS, nmf_mu_fused, nmf_recon, nmf_update
+from exemplars_vc_tpu_torch.factorize.nmf_cuda import (EPS, nmf_kl_operand, nmf_kl_update,
+                                                       nmf_mu_fused, nmf_recon, nmf_update)
 
 
 class NmfState(NamedTuple):
@@ -188,14 +191,13 @@ def nmf_activations(X: torch.Tensor, A: torch.Tensor, beta_loss: str = "frobeniu
                              "(the JAX package has no fused KL kernel)")
         den = A.sum(dim=1)[None, :] + l1
         den = torch.where(den == 0.0, EPS, den)
-        G = torch.empty((F, K), dtype=torch.float32, device=X.device)
+        At = nmf_kl_operand(A)    # A as the update reads it, once a solve
         checked = []          # the last check's P; H has not changed since
 
         def step(H):
-            # H ⊙ ((X ⊘ P)·Aᵀ ⊘ den) in that order, in place: no F × K temporary
+            # H ⊙ ((X ⊘ P)·Aᵀ ⊘ den) in that order, in place
             P = checked.pop() if checked else nmf_recon(H, A)
-            torch.mm(X / torch.clamp(P, min=EPS), A.T, out=G)
-            return H.mul_(G.div_(den))
+            return nmf_kl_update(X / torch.clamp(P, min=EPS), At, H, den, out=H)
 
         def error(H):
             checked[:] = [nmf_recon(H, A)]

@@ -1,11 +1,13 @@
-"""Frobenius MU kernels: CUDA wrappers, their launch plans and their
-plain-PyTorch twins.
+"""MU NMF kernels: CUDA wrappers, their launch plans and their plain-PyTorch
+twins.
 
 ``nmf_recon`` replaces ``exemplars_vc_tpu/factorize/nmf_pallas.py:_recon_kernel``,
 ``nmf_update`` replaces ``_update_kernel`` and ``nmf_mu_fused`` replaces
-``_fused_mu_call`` (one MU iteration per launch); all are in ``csrc/nmf_mu.cu``.
-A CUDA tensor goes to the kernel (or the call raises); a CPU tensor goes to
-the twin.
+``_fused_mu_call`` (one MU iteration per launch); ``nmf_kl_update`` (the KL
+step after its recon, H ⊙ (R·Aᵀ ⊘ den)) replaces no TPU kernel: the JAX
+package leaves that step to XLA. All are in ``csrc/nmf_mu.cu``. A CUDA
+tensor goes to the kernel (or the call raises); a CPU tensor goes to the
+twin.
 
 ``nmf_recon`` is a persistent split-K over every SM, one cooperative launch.
 Its plan (``nmf_recon_plan``) is a pure function of the shape and the card's
@@ -26,8 +28,10 @@ its FMA rate from F ~ 100 up (52 % of its fp32 bound at F = 620, K =
 ``csrc/nmf_mu.cu``'s head note). ``nmf_update`` has no split (K is
 its output axis); its plan (``nmf_update_plan``) gives the tile, the grid
 over K and F and the shared memory of its staging ring, which does not grow
-with D. The C entries refuse a plan that cannot launch, and the wrappers
-raise.
+with D. ``nmf_kl_update`` is a persistent grid of its own whose CTAs each
+keep one F tile of R in shared memory and walk K tiles
+(``nmf_kl_update_plan``); it shares no code with ``nmf_update``. The C
+entries refuse a plan that cannot launch, and the wrappers raise.
 """
 
 from __future__ import annotations
@@ -55,6 +59,12 @@ _FUSED_BN = 256          # fused: phase-1 D chunk and phase-2 K pass (EVC_FUSED_
 _FUSED_TILES = ((32, 4), (16, 2), (8, 2))
 UPDATE_TILE = (64, 128)  # nmf_update's CTA tile, F x K (EVC_UPDATE_BM/BN)
 _UPDATE_STAGES = 4       # nmf_update's cp.async ring (EVC_UPDATE_NS)
+KL_THREADS = 256         # nmf_kl_update: 16 x 16 threads (EVC_KL_NT)
+KL_TM = 8                # nmf_kl_update: F rows of a thread's register tile (EVC_KL_TM)
+KL_TN = 8                # nmf_kl_update: K columns of a thread's register tile (EVC_KL_TN)
+KL_BN = 128              # nmf_kl_update's K tile (EVC_KL_BN)
+_KL_BK = 16              # nmf_kl_update's staged d slice (EVC_KL_BK)
+_KL_STAGES = 4           # nmf_kl_update's cp.async ring (EVC_KL_NS)
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -254,6 +264,43 @@ def nmf_update_plan(F: int, K: int, D: int, n_sms: int) -> dict:
             "smem_bytes": 4 * _UPDATE_STAGES * _BK * (bm + 4 + bn + 4)}
 
 
+def _kl_smem_bytes(bm: int, D: int, r_staged: bool) -> int:
+    """The H tile ([bm][128]) and its den ([128]), the ring of d slices
+    (Aᵀ's [16][132] and, staged, R's [16][bm + 4]) and, resident, R's whole
+    d-major block ([D rounded up to 16][bm + 4])."""
+    dp = max(1, _cdiv(D, _KL_BK)) * _KL_BK
+    stage = _KL_BK * (KL_BN + 4) + (_KL_BK * (bm + 4) if r_staged else 0)
+    return 4 * ((bm + 1) * KL_BN + _KL_STAGES * stage + (0 if r_staged else dp * (bm + 4)))
+
+
+def nmf_kl_update_plan(F: int, K: int, D: int, n_sms: int) -> dict:
+    """``nmf_kl_update``'s launch plan: 256 threads of 8 × 8 outputs each, a
+    tile of 128 rows of F by 128 of K, and a persistent grid of
+    ``groups`` CTAs an F tile: CTA c owns F tile c % T_f and walks the K
+    tiles c // T_f, + groups, … (``kl_tiles``), so the CTAs of one K tile run
+    at once and share its A slice in L2. ``groups`` is as many as the SMs
+    hold beside the other F tiles (one where the F tiles alone outnumber
+    the SMs), and no more than there are K tiles. R stays resident in
+    shared memory where its block fits beside the ring and the H tile, and
+    is staged in d slices beside A (``r_staged``) where D makes it too
+    large (D > 240); the choice follows the shape alone."""
+    bm = 16 * KL_TM
+    tiles = (_cdiv(F, bm), _cdiv(K, KL_BN))
+    r_staged = _kl_smem_bytes(bm, D, False) > SMEM_LIMIT_BYTES
+    groups = max(1, min(n_sms // tiles[0], tiles[1]))
+    return {"tile": (bm, KL_BN), "thread_tile": (KL_TM, KL_TN), "threads": KL_THREADS,
+            "stages": _KL_STAGES, "split": 1, "tiles": tiles, "groups": groups,
+            "r_staged": r_staged, "grid": (groups * tiles[0], 1, 1),
+            "smem_bytes": _kl_smem_bytes(bm, D, r_staged)}
+
+
+def kl_tiles(plan: dict, cta: int) -> list[tuple[int, int]]:
+    """The output tiles (F tile, K tile) CTA ``cta`` of ``nmf_kl_update_plan``
+    computes, in order."""
+    tf, tk = plan["tiles"]
+    return [(cta % tf, k) for k in range(cta // tf, tk, plan["groups"])]
+
+
 _PIECE_FIELDS = ("long_pieces", "rem_kb", "pieces", "groups")
 _RECON_FIELDS = ("single_ctas", "range_ctas", "range_units")
 
@@ -265,13 +312,14 @@ class _Plan(ctypes.Structure):
                                                      "smem_bytes")),
                 ("k_bounds", ctypes.c_int * (MAX_CLUSTER + 1)),
                 *((name, ctypes.c_int) for name in (*_PIECE_FIELDS, *_RECON_FIELDS,
-                                                     "tiles_f", "tiles_d"))]
+                                                     "tiles_f", "tiles_d", "r_staged"))]
 
 
 def _pack(plan: dict) -> _Plan:
     # bounds past the struct's room are dropped: the C entry refuses such a
     # split before it reads them. A plan without pieces (nmf_update) packs
-    # split 1, one piece and bounds that the C entry does not read.
+    # split 1, one piece and bounds that the C entry does not read; the KL
+    # update's groups are its CTAs an F tile and its tiles (F, K).
     bounds = list(plan.get("k_bounds", (0,)))[:MAX_CLUSTER + 1]
     bounds += [bounds[-1]] * (MAX_CLUSTER + 1 - len(bounds))
     defaults = {"long_pieces": 1, "pieces": 1, "groups": 1}
@@ -279,18 +327,19 @@ def _pack(plan: dict) -> _Plan:
                  *plan["grid"], plan["smem_bytes"],
                  (ctypes.c_int * (MAX_CLUSTER + 1))(*bounds),
                  *(plan.get(k, defaults.get(k, 0)) for k in (*_PIECE_FIELDS, *_RECON_FIELDS)),
-                 *plan.get("tiles", (0, 0)))
+                 *plan.get("tiles", (0, 0)), int(plan.get("r_staged", False)))
 
 
 def co_resident_clusters(kernel: str, plan: dict, F: int, K: int, D: int) -> int:
     """How many clusters of ``plan`` the current card holds at once, for
-    ``kernel`` "nmf_recon", "nmf_mu_fused" or "nmf_update" (the recon and
-    the update have no cluster: their CTAs, CTAs an SM times the SMs, as the
-    occupancy query reports them). The C entry checks the plan as for a
-    launch and raises where it would refuse it."""
+    ``kernel`` "nmf_recon", "nmf_mu_fused", "nmf_update" or "nmf_kl_update"
+    (all but the fused kernel have no cluster: their CTAs, CTAs an SM times
+    the SMs, as the occupancy query reports them). The C entry checks the
+    plan as for a launch and raises where it would refuse it."""
     name = {"nmf_recon": "evc_nmf_recon_clusters",
             "nmf_mu_fused": "evc_nmf_fused_mu_clusters",
-            "nmf_update": "evc_nmf_update_clusters"}[kernel]
+            "nmf_update": "evc_nmf_update_clusters",
+            "nmf_kl_update": "evc_nmf_kl_update_clusters"}[kernel]
     ci = ctypes.c_int
     n = ci()
     _launch(name, [ci, ci, ci, ctypes.POINTER(_Plan), ctypes.POINTER(ci)], F, K, D,
@@ -299,7 +348,7 @@ def co_resident_clusters(kernel: str, plan: dict, F: int, K: int, D: int) -> int
 
 
 _PLANS = {"nmf_recon": nmf_recon_plan, "nmf_update": nmf_update_plan,
-          "nmf_mu_fused": nmf_mu_fused_plan}
+          "nmf_mu_fused": nmf_mu_fused_plan, "nmf_kl_update": nmf_kl_update_plan}
 
 
 @lru_cache(maxsize=64)
@@ -490,3 +539,68 @@ def nmf_mu_fused(H: torch.Tensor, A: torch.Tensor, Num: torch.Tensor, l1: float 
 
 
 nmf_mu_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# H ← H ⊙ (R·Aᵀ ⊘ den): the KL step after its recon
+# ---------------------------------------------------------------------------
+
+def nmf_kl_operand(A: torch.Tensor) -> torch.Tensor:
+    """The dictionary A (K, D) as ``nmf_kl_update`` reads it, Aᵀ (D, K); a
+    solve makes it once. On the card a contiguous copy, whose rows the
+    kernel copies in 16 bytes (A's rows of D floats are not 16-byte
+    aligned); on the CPU the view ``A.T``, which the twin hands to
+    ``torch.mm`` as the KL solve always has."""
+    return A.T.contiguous() if A.is_cuda else A.T
+
+
+def nmf_kl_update_plain(R: torch.Tensor, At: torch.Tensor, H: torch.Tensor, den: torch.Tensor,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """H (F, K) ⊙ ((R (F, D) · At (D, K)) ⊘ den (1, K)) as the KL solve made
+    it before the kernel: ``torch.mm`` into an F × K buffer G, ``G.div_(den)``,
+    then the product with H, in place where ``out`` is H."""
+    G = torch.empty(H.shape, dtype=torch.float32, device=H.device)
+    torch.mm(R, At, out=G)
+    G.div_(den)
+    if out is H:
+        return H.mul_(G)
+    return torch.mul(H, G, out=out)
+
+
+def nmf_kl_update(R: torch.Tensor, At: torch.Tensor, H: torch.Tensor, den: torch.Tensor,
+                  out: torch.Tensor | None = None, plan: dict | None = None) -> torch.Tensor:
+    """One KL MU update after its recon, R = X ⊘ max(P, EPS), with the
+    dictionary as ``At = nmf_kl_operand(A)``; on CUDA through
+    ``evc_nmf_kl_update`` (counted in ``nmf_kl_update.launches``) with
+    ``plan`` (default ``nmf_kl_update_plan``; one the card cannot launch
+    raises RuntimeError). ``den`` holds A's K row sums + l1 (0 → EPS).
+    ``out=H`` updates H in place, which the kernel allows (each element is
+    read and written by the one CTA that owns it)."""
+    if H.device.type == "cpu":
+        return nmf_kl_update_plain(R, At, H, den, out)
+    if H.device.type != "cuda":
+        raise ValueError(f"nmf_kl_update: unsupported device {H.device}")
+    F, K = H.shape
+    D = At.shape[0]
+    for name, t, shape in (("R", R, (F, D)), ("At", At, (D, K)), ("H", H, (F, K)),
+                           ("den", den, (1, K))):
+        _check_f32(name, t, shape, H.device)
+    if out is None:
+        out = torch.empty_like(H)
+    else:
+        _check_f32("out", out, (F, K), H.device)
+    if F == 0 or K == 0:
+        return out
+    packed = (_default_plan("nmf_kl_update", F, K, D, _sms(H.device))[0] if plan is None
+              else _pack(plan))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream(H.device).cuda_stream
+        _launch("evc_nmf_kl_update", [vp, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(_Plan), vp],
+                R.data_ptr(), At.data_ptr(), H.data_ptr(), den.data_ptr(), out.data_ptr(),
+                F, K, D, ctypes.byref(packed), stream)
+    nmf_kl_update.launches += 1
+    return out
+
+
+nmf_kl_update.launches = 0

@@ -6,26 +6,30 @@ one. The file imports no jax, so on a machine without jax it runs alone:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 Tolerances: the DTW kernels equal their twins exactly (min/add only), and
-repeated launches give equal bits; the
-NMF kernels (the fused MU iteration too) sum in another order than cuBLAS,
-so one call agrees within a relative error max|kernel − plain| / max|plain|
-of 1e-5. The NMF kernels use no atomics, so repeated launches are compared
-for equal bits, and the update's float4 and scalar epilogues (aligned and
-misaligned pointers) for equal bits too: they do the same arithmetic. The fused Griffin-Lim's unit phases after 6 iterations are held
-to a float64 run of its twin: the kernel's mean phase error may be at most
-twice the float32 twin's own (+ 1e-7), and kernel and twin agree within
-1e-4 relative L2. An element-wise 1e-4 between kernel and twin holds only
-at small shapes: at F = 688 the float32 twin is itself up to 8.5e-4 from
-float64 after 6 iterations (a bin whose t = rebuilt − μ/(1+μ)·prev nearly
-cancels turns rounding into phase), and such a worst bin is a tail
-statistic that differs between two roundings by a factor of ~3. The
-centered kernel (the production's projection) at the served and streamed
-shapes, 300 and 60 iterations, is held to the float64 twin by the same
-mean-phase rule alone: over hundreds of iterations the float32 twin drifts
-from float64 by more than 1e-4. The production ``griffin_lim`` takes the
-centered kernel for those shapes, and runs its eager loop for the others (a
-hop that does not divide n_fft, more frames than the kernel's tiles hold),
-where it must equal ``_fused=False`` bit for bit and hold no memory after."""
+repeated launches give equal bits; the NMF kernels (the fused MU iteration
+too) sum in another order than cuBLAS, so one call agrees within a relative
+error max|kernel − plain| / max|plain| of 1e-5. The NMF kernels use no
+atomics, so repeated launches are compared for equal bits, and the update's
+float4 and scalar epilogues (aligned and misaligned pointers) for equal bits
+too: they do the same arithmetic. The KL update sums R·Aᵀ over d in another
+order than cuBLAS, and every term is non-negative, so each element is well
+conditioned: it is held per element, max |kernel − twin| / |twin| ≤ 1e-5
+(and 0 where the twin is 0); in place, out of place, misaligned and repeated
+runs give equal bits. The fused Griffin-Lim's unit phases after 6 iterations
+are held to a float64 run of its twin: the kernel's mean phase error may be
+at most twice the float32 twin's own (+ 1e-7), and kernel and twin agree
+within 1e-4 relative L2. An element-wise 1e-4 between kernel and twin holds
+only at small shapes: at F = 688 the float32 twin is itself up to 8.5e-4
+from float64 after 6 iterations (a bin whose t = rebuilt − μ/(1+μ)·prev
+nearly cancels turns rounding into phase), and such a worst bin is a tail
+statistic that differs between two roundings by a factor of ~3. The centered
+kernel (the production's projection) at the served and streamed shapes, 300
+and 60 iterations, is held to the float64 twin by the same mean-phase rule
+alone: over hundreds of iterations the float32 twin drifts from float64 by
+more than 1e-4. The production ``griffin_lim`` takes the centered kernel for
+those shapes, and runs its eager loop for the others (a hop that does not
+divide n_fft, more frames than the kernel's tiles hold), where it must equal
+``_fused=False`` bit for bit and hold no memory after."""
 
 import numpy as np
 import pytest
@@ -473,14 +477,92 @@ def test_nmf_recon_at_the_quality_shapes(cuda, F, K, D):
     assert torch.equal(P, nmf_cuda.nmf_recon(H, A))
 
 
+# the KL update's shapes: the quality cell's (K = 71,680, D = 201), and edges:
+# F within one 128-row tile (F = 37, 16, 13), K % 4 != 0 (4-byte H and Aᵀ
+# copies, element stores; 7681, 130, 1030), a short last K tile, fewer d
+# slices than the ring (D = 25, 7), and R staged in d slices beside Aᵀ
+# (D = 1025, 2500)
+NMF_KL = [(620, 71_680, 201), (1360, 71_680, 201), (37, 7681, 201), (16, 14_336, 201),
+          (100, 130, 25), (65, 300, 7), (620, 14_336, 1025), (65, 1030, 1025), (13, 300, 2500)]
+
+
+def _kl_inputs(F, K, D, device):
+    """R > 0, A ≥ 0 with zero rows at the end (den = EPS there, the quotient
+    0) as the update reads it (Aᵀ), H in [0, 0.05) and den as the solve makes
+    it (l1 = 0)."""
+    rng = np.random.default_rng(F + K + D)
+    A = np.abs(rng.standard_normal((K, D))).astype(np.float32)
+    A[K - max(1, K // 10):] = 0.0
+    A = torch.as_tensor(A, device=device)
+    R = torch.as_tensor(np.abs(rng.standard_normal((F, D))).astype(np.float32), device=device)
+    H = torch.as_tensor(rng.uniform(0, 0.05, (F, K)).astype(np.float32), device=device)
+    den = A.sum(dim=1)[None, :]
+    return R, nmf_cuda.nmf_kl_operand(A), H, torch.where(den == 0.0, nmf_cuda.EPS, den)
+
+
+def _rel_each(got, ref):
+    """max |got − ref| / |ref| over ref's non-zero elements; inf where got
+    is not 0 where ref is."""
+    nz = ref != 0
+    if not bool((got[~nz] == 0).all()):
+        return float("inf")
+    return float(((got - ref).abs()[nz] / ref.abs()[nz]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,K,D", NMF_KL)
+def test_nmf_kl_update_matches_twin(cuda, F, K, D):
+    R, At, H, den = _kl_inputs(F, K, D, cuda)
+    ref = nmf_cuda.nmf_kl_update_plain(R, At, H, den)
+    before = nmf_cuda.nmf_kl_update.launches
+    got = nmf_cuda.nmf_kl_update(R, At, H, den)
+    assert nmf_cuda.nmf_kl_update.launches == before + 1
+    assert _rel_each(got, ref) <= 1e-5
+    assert bool((got[:, K - max(1, K // 10):] == 0).all())
+    assert torch.equal(got, nmf_cuda.nmf_kl_update(R, At, H, den))   # no atomics: the same bits
+    Hin = H.clone()
+    assert nmf_cuda.nmf_kl_update(R, At, Hin, den, out=Hin) is Hin
+    assert torch.equal(Hin, got)
+
+
+@pytest.mark.cuda
+def test_nmf_kl_update_in_place_on_misaligned_views(cuda):
+    """H (in place), out and Aᵀ as contiguous views 4 bytes into their
+    storage: the kernel copies H and Aᵀ in 4-byte pieces and stores element
+    by element, and gives the bits of its 16-byte path on aligned tensors;
+    Aᵀ as a transposed view of A is refused."""
+    F, K, D = 100, 700, 201
+    R, At, H, den = _kl_inputs(F, K, D, cuda)
+    aligned = nmf_cuda.nmf_kl_update(R, At, H, den)
+    with pytest.raises(ValueError):
+        nmf_cuda.nmf_kl_update(R, At.T.contiguous().T, H, den)
+    abuf = torch.empty(D * K + 1, device=cuda)
+    Atv = abuf[1:].view(D, K)
+    assert Atv.is_contiguous() and Atv.data_ptr() % 16 == 4
+    Atv.copy_(At)
+    assert torch.equal(nmf_cuda.nmf_kl_update(R, Atv, H, den), aligned)
+    hbuf = torch.empty(F * K + 1, device=cuda)
+    Hv = hbuf[1:].view(F, K)
+    assert Hv.is_contiguous() and Hv.data_ptr() % 16 == 4
+    Hv.copy_(H)
+    assert nmf_cuda.nmf_kl_update(R, At, Hv, den, out=Hv) is Hv
+    assert torch.equal(Hv, aligned)
+    obuf = torch.empty(F * K + 1, device=cuda)
+    Ov = obuf[1:].view(F, K)
+    assert torch.equal(nmf_cuda.nmf_kl_update(R, At, H, den, out=Ov), aligned)
+    assert _rel_each(aligned, nmf_cuda.nmf_kl_update_plain(R, At, H, den)) <= 1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tol,max_iter", [(0.0, 30), (1e-4, 150)])
 def test_kl_solve_takes_its_recon_from_the_kernel(cuda, monkeypatch, tol, max_iter):
     """The KL solve launches ``nmf_recon`` 1 + n_iter times (a check's P
-    feeds the next step) and ``nmf_update`` never. With the tolerance off
-    its H agrees with the same solve on cuBLAS products (the recon swapped
-    for its twin) within 1e-4 relative L2: each recon is within 1e-5 of
-    its twin, and 30 multiplicative steps carry that along."""
+    feeds the next step), ``nmf_kl_update`` n_iter times and ``nmf_update``
+    never. With the tolerance off its H agrees with the same solve on
+    cuBLAS products (the recon and the update swapped for their twins)
+    within 1e-4 relative L2: each recon is within 1e-5 of its twin, each
+    update within 1e-5 per element, and 30 multiplicative steps carry that
+    along."""
     from exemplars_vc_tpu_torch.factorize import nmf
 
     A, _, _ = _nmf_inputs(200, 7168, 201, cuda)
@@ -488,31 +570,35 @@ def test_kl_solve_takes_its_recon_from_the_kernel(cuda, monkeypatch, tol, max_it
     rng = np.random.default_rng(3)
     X = torch.as_tensor(np.abs(rng.standard_normal((200, 201))).astype(np.float32), device=cuda)
     recons, updates = nmf_cuda.nmf_recon.launches, nmf_cuda.nmf_update.launches
+    kl_updates = nmf_cuda.nmf_kl_update.launches
     st = nmf.nmf_activations(X, A, beta_loss="kl", tol=tol, max_iter=max_iter)
     assert nmf_cuda.nmf_recon.launches - recons == 1 + st.n_iter
+    assert nmf_cuda.nmf_kl_update.launches - kl_updates == st.n_iter
     assert nmf_cuda.nmf_update.launches == updates
     assert bool(torch.isfinite(st.H).all()) and bool((st.H >= 0).all())
     if tol == 0.0:
         monkeypatch.setattr(nmf, "nmf_recon", nmf_cuda.nmf_recon_plain)
+        monkeypatch.setattr(nmf, "nmf_kl_update", nmf_cuda.nmf_kl_update_plain)
         ref = nmf.nmf_activations(X, A, beta_loss="kl", tol=tol, max_iter=max_iter)
         assert st.n_iter == ref.n_iter == max_iter
         assert float(torch.linalg.norm(st.H - ref.H) / torch.linalg.norm(ref.H)) <= 1e-4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["nmf_recon", "nmf_mu_fused", "nmf_update"])
+@pytest.mark.parametrize("kernel", ["nmf_recon", "nmf_mu_fused", "nmf_update", "nmf_kl_update"])
 @pytest.mark.parametrize("fault", ["cluster", "smem", "tile"])
 def test_nmf_plan_that_cannot_launch_raises(cuda, kernel, fault):
-    """A cluster above the portable 8 (for the update, any cluster; for the
-    recon, whose CTAs meet at a grid barrier, more CTAs than the card holds
-    at once), shared memory above the opt-in limit or a tile the source does
-    not compile is refused before any launch."""
+    """A cluster above the portable 8 (for the two updates, any cluster; for
+    the recon, whose CTAs meet at a grid barrier, more CTAs than the card
+    holds at once), shared memory above the opt-in limit or a tile the source
+    does not compile is refused before any launch."""
     F, K, D = 100, 700, 201
     A, H, Num = _nmf_inputs(F, K, D, cuda)
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = {"nmf_recon": nmf_cuda.nmf_recon_plan, "nmf_mu_fused": nmf_cuda.nmf_mu_fused_plan,
-            "nmf_update": nmf_cuda.nmf_update_plan}[kernel](F, K, D, n_sms)
-    if fault == "cluster" and kernel == "nmf_update":
+            "nmf_update": nmf_cuda.nmf_update_plan,
+            "nmf_kl_update": nmf_cuda.nmf_kl_update_plan}[kernel](F, K, D, n_sms)
+    if fault == "cluster" and kernel in ("nmf_update", "nmf_kl_update"):
         plan = dict(plan, split=2)
     elif fault == "cluster" and kernel == "nmf_recon":
         ctas = 4 * n_sms   # one CTA an SM fits: four do not
@@ -533,6 +619,9 @@ def test_nmf_plan_that_cannot_launch_raises(cuda, kernel, fault):
             nmf_cuda.nmf_recon(H, A, plan=plan)
         elif kernel == "nmf_update":
             nmf_cuda.nmf_update(nmf_cuda.nmf_recon_plain(H, A), A, H, Num, out=out, plan=plan)
+        elif kernel == "nmf_kl_update":
+            nmf_cuda.nmf_kl_update(torch.rand((F, D), device=cuda), nmf_cuda.nmf_kl_operand(A),
+                                   H, A.sum(dim=1)[None, :], out=out, plan=plan)
         else:
             nmf_cuda.nmf_mu_fused(H, A, Num, out=out, plan=plan)
     torch.cuda.synchronize()

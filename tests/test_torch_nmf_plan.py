@@ -10,7 +10,10 @@ on both paths). At the served shapes (K = 14,336: a stream chunk's F = 16,
 a request's F = 620 at D = 1025, and the four-rank shard) every SM gets
 about the same work. The update's plan must cover F and K with its tiles
 and keep its shared memory fixed for every D, 8193 (past the fused
-kernel's limit) included."""
+kernel's limit) included. The KL update's plan must give every output tile
+to exactly one CTA, each CTA one F tile and a fair share of the K tiles, at
+the quality cell's shapes and over the same grid, and keep R resident in
+shared memory unless D makes its block too large."""
 
 import itertools
 
@@ -29,6 +32,10 @@ PLANS = {"nmf_recon": nmf_cuda.nmf_recon_plan, "nmf_mu_fused": nmf_cuda.nmf_mu_f
 UPDATE_DS = (1, 25, 201, 300, 6144, 8193)
 # the served recon shapes: a stream chunk, a WORLD request, their four-rank shards
 SERVED = [(16, 14_336, 201), (620, 14_336, 1025), (16, 3584, 201), (620, 3584, 1025)]
+# the KL update at the quality cell's K = 71,680 and D = 201 (a stream-sized
+# F, the shortest request, a 3.9 s one, the longest) and at D = 1025
+KL_SERVED = [(16, 71_680, 201), (200, 71_680, 201), (620, 71_680, 201), (1360, 71_680, 201),
+             (620, 14_336, 1025)]
 
 
 def _check_pieces(plan, K):
@@ -288,7 +295,8 @@ def test_cpu_tensors_take_the_twins_whatever_the_plan():
     bad = dict(nmf_cuda.nmf_recon_plan(13, 40, 7, H100_SMS), split=9)
     bad_update = dict(nmf_cuda.nmf_update_plan(13, 40, 7, H100_SMS), tile=(24, 128),
                       smem_bytes=SMEM_LIMIT_BYTES + 1024)
-    fns = (nmf_cuda.nmf_recon, nmf_cuda.nmf_mu_fused, nmf_cuda.nmf_update)
+    fns = (nmf_cuda.nmf_recon, nmf_cuda.nmf_mu_fused, nmf_cuda.nmf_update,
+           nmf_cuda.nmf_kl_update)
     before = tuple(fn.launches for fn in fns)
     assert torch.equal(nmf_cuda.nmf_recon(H, A, plan=bad), H @ A)
     assert torch.equal(nmf_cuda.nmf_mu_fused(H, A, Num, plan=bad),
@@ -299,4 +307,78 @@ def test_cpu_tensors_take_the_twins_whatever_the_plan():
     Hin = H.clone()
     assert nmf_cuda.nmf_update(P, A, Hin, Num, 0.3, out=Hin, plan=bad_update) is Hin
     assert torch.equal(Hin, ref)
+    R, den = Num[:, :7] + 0.5, A.sum(dim=1)[None, :] + 0.3
+    bad_kl = dict(nmf_cuda.nmf_kl_update_plan(13, 40, 7, H100_SMS), tile=(24, 128), r_staged=2)
+    ref = nmf_cuda.nmf_kl_update_plain(R, A.T, H, den)
+    assert torch.equal(nmf_cuda.nmf_kl_update(R, nmf_cuda.nmf_kl_operand(A), H, den,
+                                              plan=bad_kl), ref)
     assert tuple(fn.launches for fn in fns) == before
+
+
+def _kl_check(plan, F, K, n_sms):
+    """Every (F tile, K tile) on exactly one CTA, each CTA on one F tile
+    with at least one K tile, the CTAs of an F tile within one tile of each
+    other; returns the tiles a CTA takes."""
+    tf, tk = plan["tiles"]
+    bm, bn = plan["tile"]
+    assert (tf - 1) * bm < F <= tf * bm and (tk - 1) * bn < K <= tk * bn
+    assert plan["grid"] == (plan["groups"] * tf, 1, 1) and plan["split"] == 1
+    assert plan["grid"][0] <= max(n_sms, tf)
+    tiles = [nmf_cuda.kl_tiles(plan, c) for c in range(plan["grid"][0])]
+    assert all(t and len({f for f, _ in t}) == 1 for t in tiles)
+    assert sorted(x for t in tiles for x in t) == [(f, k) for f in range(tf) for k in range(tk)]
+    loads = [len(t) for t in tiles]
+    assert max(loads) - min(loads) <= 1
+    tm, tn = plan["thread_tile"]
+    assert plan["threads"] == bm * bn // (tm * tn) == 256
+    assert plan["smem_bytes"] <= SMEM_LIMIT_BYTES
+    return loads
+
+
+@pytest.mark.parametrize("F,K,D", KL_SERVED)
+def test_kl_plan_covers_every_tile_once(F, K, D):
+    """At the served shapes the CTAs fill the card: an F tile's K tiles are
+    shared by as many CTAs as fit beside the other F tiles."""
+    plan = nmf_cuda.nmf_kl_update_plan(F, K, D, H100_SMS)
+    loads = _kl_check(plan, F, K, H100_SMS)
+    tf, tk = plan["tiles"]
+    assert plan["groups"] == H100_SMS // tf and plan["grid"][0] > H100_SMS - tf
+    assert max(loads) == -(-tk // plan["groups"])
+    assert plan["tile"] == (128, 128)
+    assert plan["r_staged"] == (D == 1025)
+
+
+@pytest.mark.parametrize("F", FS)
+def test_kl_plan_tiles_and_limits(F):
+    for K, D in itertools.product(KS, DS):
+        for n_sms in (8, H100_SMS):
+            _kl_check(nmf_cuda.nmf_kl_update_plan(F, K, D, n_sms), F, K, n_sms)
+
+
+@pytest.mark.parametrize("F,D,staged", [(620, 201, False), (620, 240, False), (620, 241, True),
+                                        (620, 1025, True), (49, 8193, True), (16, 1025, True),
+                                        (48, 240, False), (48, 241, True), (1, 8193, True)])
+def test_kl_plan_stages_r_where_d_needs_it(F, D, staged):
+    """R stays resident, d-major, beside the ring, the H tile and its den
+    wherever that fits one block's shared memory (D ≤ 240, whatever F), and
+    is staged in d slices beside Aᵀ exactly where it does not."""
+    plan = nmf_cuda.nmf_kl_update_plan(F, 71_680, D, H100_SMS)
+    bm = plan["tile"][0]
+    resident = 4 * ((bm + 1) * 128 + 4 * 16 * 132 + -(-D // 16) * 16 * (bm + 4))
+    assert plan["r_staged"] == staged == (resident > SMEM_LIMIT_BYTES)
+    assert plan["smem_bytes"] == (4 * ((bm + 1) * 128 + 4 * 16 * (132 + bm + 4)) if staged
+                                  else resident)
+    assert plan["smem_bytes"] <= SMEM_LIMIT_BYTES
+
+
+def test_kl_plan_packs_into_the_c_struct():
+    plan = nmf_cuda.nmf_kl_update_plan(620, 71_680, 201, H100_SMS)
+    packed = nmf_cuda._pack(plan)
+    assert (packed.bm, packed.bn, packed.threads, packed.stages, packed.split) == (
+        128, 128, 256, 4, 1)
+    assert (packed.grid_x, packed.grid_y, packed.grid_z) == plan["grid"] == (130, 1, 1)
+    assert (packed.tiles_f, packed.tiles_d, packed.groups) == (5, 560, 26)
+    assert packed.smem_bytes == plan["smem_bytes"] and packed.r_staged == 0
+    assert nmf_cuda._pack(nmf_cuda.nmf_kl_update_plan(620, 14_336, 1025, H100_SMS)).r_staged == 1
+    # the other kernels pack R as not staged, a field their C entries do not read
+    assert nmf_cuda._pack(nmf_cuda.nmf_recon_plan(620, 14_336, 1025, H100_SMS)).r_staged == 0

@@ -25,9 +25,11 @@ Tolerances, each with its reason:
   ~1e-6), and the same MU steps.
 
 Also: a KL solve asks ``nmf_recon`` for 1 + n_iter reconstructions (the
-error check's P feeds the next step), and its H and error are bit-equal on
-the CPU to the formulation it replaced (a fresh H·A each step and each
-check, and F × K temporaries)."""
+error check's P feeds the next step) and ``nmf_kl_update`` for n_iter
+updates, and its H and error are bit-equal on the CPU to the formulation
+it replaced (a fresh H·A each step and each check, and F × K
+temporaries); ``nmf_kl_update`` on CPU tensors is the step's old three ops
+(``torch.mm`` into a buffer, ``div_``, ``mul_``) bit for bit."""
 
 import json
 from pathlib import Path
@@ -38,7 +40,7 @@ import torch
 
 from benchmark.harness.bench import program_config
 from benchmark.reference import quality as ref
-from exemplars_vc_tpu_torch.factorize import nmf
+from exemplars_vc_tpu_torch.factorize import nmf, nmf_cuda
 from exemplars_vc_tpu_torch.factorize.nmf import EPS, _kl_error, _mu_loop
 from exemplars_vc_tpu_torch.io.store import ArtifactStore
 from exemplars_vc_tpu_torch.io.wav import read_wav
@@ -166,15 +168,48 @@ def _old_kl(X, A, tol, max_iter, l1):
 @pytest.mark.parametrize("tol,max_iter,l1", [(1e-4, 150, 0.0), (0.0, 25, 0.0), (1e-4, 60, 0.3)])
 def test_kl_solve_makes_one_recon_a_step_and_the_old_bits(monkeypatch, tol, max_iter, l1):
     X, A = _kl_inputs(F=33, K=1024, seed=5)
-    calls = []
-    recon = nmf.nmf_recon
+    calls, updates = [], []
+    recon, update = nmf.nmf_recon, nmf.nmf_kl_update
 
     def counted(H, A):
         calls.append(1)
         return recon(H, A)
+
+    def counted_update(*args, **kw):
+        updates.append(1)
+        return update(*args, **kw)
     monkeypatch.setattr(nmf, "nmf_recon", counted)
+    monkeypatch.setattr(nmf, "nmf_kl_update", counted_update)
     st = nmf.nmf_activations(X, A, beta_loss="kl", tol=tol, max_iter=max_iter, l1=l1)
     H, n_iter, err = _old_kl(X, A, tol, max_iter, l1)
-    assert len(calls) == 1 + st.n_iter
+    assert len(calls) == 1 + st.n_iter and len(updates) == st.n_iter
     assert st.n_iter == n_iter
     assert torch.equal(st.H, H) and torch.equal(st.error, err)
+
+
+@pytest.mark.parametrize("l1", [0.0, 0.3])
+@pytest.mark.parametrize("in_place", [False, True])
+def test_kl_update_on_the_cpu_is_the_old_three_ops(l1, in_place):
+    """``nmf_kl_update`` on CPU tensors against the step it replaced
+    (``torch.mm(R, Aᵀ, out=G)``, ``G.div_(den)``, ``H.mul_(G)``), bit for bit,
+    in place and out of place, zero rows of A (den = EPS) included."""
+    X, A = _kl_inputs(F=21, K=700, seed=7)
+    H = torch.rand((21, 700), generator=torch.Generator().manual_seed(8)) * 0.05
+    R = X / torch.clamp(H @ A, min=EPS)
+    den = A.sum(dim=1)[None, :] + l1
+    den = torch.where(den == 0.0, EPS, den)
+    G = torch.empty((21, 700))
+    torch.mm(R, A.T, out=G)
+    want = H.clone().mul_(G.div_(den))
+    At = nmf_cuda.nmf_kl_operand(A)
+    before = nmf_cuda.nmf_kl_update.launches
+    if in_place:
+        Hin = H.clone()
+        assert nmf_cuda.nmf_kl_update(R, At, Hin, den, out=Hin) is Hin
+        got = Hin
+    else:
+        got = nmf_cuda.nmf_kl_update(R, At, H, den)
+    assert torch.equal(got, want)
+    assert nmf_cuda.nmf_kl_update.launches == before     # the twin: no kernel launch
+    if l1 == 0.0:
+        assert bool((got[:, A.sum(dim=1) == 0] == 0).all())
