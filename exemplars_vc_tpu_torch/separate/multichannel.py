@@ -21,6 +21,15 @@ keep TF32 off there (the composed EM goes NaN with reduced-precision
 matmuls). C × C inverses are closed form for C ≤ 2. The loop runs n_em
 iterations with no host synchronization; the per-iteration NLLs stay on the
 device until the fit returns.
+
+Spans (``obs.profiling``: recorded only while a profiler records, no host
+sync): ``separate`` (:func:`separate_signal`; attrs C, T, J, K, n_em,
+spectral_model) over ``separate.stft`` (the host STFT and its upload),
+``separate.em`` (the fit; attrs F, N, C, J, K, n_em, n_inner) and
+``separate.images`` (Wiener filter and ISTFT); inside a fit, one
+``separate.estep`` an EM iteration (:func:`_spatial_estep`) and one
+``separate.nmf`` around each iteration's IS-NMF updates. The counter
+``separate_signal.em_iters`` counts the E-steps run, every fit's.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch
 
 from exemplars_vc_tpu_torch import prng
 from exemplars_vc_tpu_torch.device import resolve_device
+from exemplars_vc_tpu_torch.obs.profiling import Timer
 from exemplars_vc_tpu_torch.separate.glue import (
     _outer,
     _trace_real,
@@ -92,38 +102,40 @@ def _spatial_estep(XX: torch.Tensor, v: torch.Tensor, R: torch.Tensor):
     (J, F) scale to ship into the spectral model, the (J, F, N) posterior
     spectral statistics and the data negative log-likelihood under the
     CURRENT parameters (a 0-d tensor)."""
-    C = XX.shape[-1]
-    eye = torch.eye(C, dtype=XX.dtype, device=XX.device)
-    Sigma, Sinv = _mixture_cov_inv(v, R)
+    separate_signal.em_iters += 1
+    with Timer(XX.device, name="separate.estep"):
+        C = XX.shape[-1]
+        eye = torch.eye(C, dtype=XX.dtype, device=XX.device)
+        Sigma, Sinv = _mixture_cov_inv(v, R)
 
-    # Wiener gains and posterior moments, all sources at once
-    vR = v[..., None, None] * R[:, :, None, :, :]                  # (J,F,N,C,C)
-    G = torch.einsum("jfncd,fnde->jfnce", vR, Sinv)
-    # ŷŷᴴ = G (x xᴴ) Gᴴ ; R̂ = ŷŷᴴ + (I − G) v R
-    GX = torch.einsum("jfncd,fnde->jfnce", G, XX)
-    yyH = torch.einsum("jfncd,jfned->jfnce", GX, G.conj())
-    Rhat = yyH + vR - torch.einsum("jfncd,jfnde->jfnce", G, vR)
+        # Wiener gains and posterior moments, all sources at once
+        vR = v[..., None, None] * R[:, :, None, :, :]                  # (J,F,N,C,C)
+        G = torch.einsum("jfncd,fnde->jfnce", vR, Sinv)
+        # ŷŷᴴ = G (x xᴴ) Gᴴ ; R̂ = ŷŷᴴ + (I − G) v R
+        GX = torch.einsum("jfncd,fnde->jfnce", G, XX)
+        yyH = torch.einsum("jfncd,jfned->jfnce", GX, G.conj())
+        Rhat = yyH + vR - torch.einsum("jfncd,jfnde->jfnce", G, vR)
 
-    # Σ_fn [log det Σ_x + xᴴ Σ_x⁻¹ x], non-increasing under EM
-    if C == 2:
-        det = (Sigma[..., 0, 0] * Sigma[..., 1, 1]
-               - Sigma[..., 0, 1] * Sigma[..., 1, 0]).real
-    else:
-        det = torch.linalg.det(Sigma).real
-    quad = torch.einsum("fncd,fndc->fn", Sinv, XX).real
-    nll = torch.sum(torch.log(torch.clamp(det, min=1e-30)) + quad)
+        # Σ_fn [log det Σ_x + xᴴ Σ_x⁻¹ x], non-increasing under EM
+        if C == 2:
+            det = (Sigma[..., 0, 0] * Sigma[..., 1, 1]
+                   - Sigma[..., 0, 1] * Sigma[..., 1, 0]).real
+        else:
+            det = torch.linalg.det(Sigma).real
+        quad = torch.einsum("fncd,fndc->fn", Sinv, XX).real
+        nll = torch.sum(torch.log(torch.clamp(det, min=1e-30)) + quad)
 
-    # M-step: spatial covariances, trace-normalized to C (energy → spectra)
-    R_new = _hermitize(torch.mean(Rhat / v[..., None, None], dim=2))
-    trR = torch.clamp(_trace_real(R_new), min=_EPS)
-    R_new = R_new * (C / trR)[..., None, None]
+        # M-step: spatial covariances, trace-normalized to C (energy → spectra)
+        R_new = _hermitize(torch.mean(Rhat / v[..., None, None], dim=2))
+        trR = torch.clamp(_trace_real(R_new), min=_EPS)
+        R_new = R_new * (C / trR)[..., None, None]
 
-    # a 1e-5·I ridge before inverting: a converged point source drives R_j(f)
-    # to its rank-1 steering covariance, whose 2×2 determinant underflows in
-    # float32 and turns the EM NaN
-    Rinv = _inv_hermitian(R_new + 1e-5 * eye)
-    z = torch.einsum("jfcd,jfndc->jfn", Rinv, Rhat).real / C
-    return R_new, trR / C, torch.clamp(z, min=_EPS), nll
+        # a 1e-5·I ridge before inverting: a converged point source drives R_j(f)
+        # to its rank-1 steering covariance, whose 2×2 determinant underflows in
+        # float32 and turns the EM NaN
+        Rinv = _inv_hermitian(R_new + 1e-5 * eye)
+        z = torch.einsum("jfcd,jfndc->jfn", Rinv, Rhat).real / C
+        return R_new, trR / C, torch.clamp(z, min=_EPS), nll
 
 
 def _nmf_inner(z: torch.Tensor, W: torch.Tensor, H: torch.Tensor):
@@ -151,8 +163,9 @@ def _em_loop(X: torch.Tensor, W: torch.Tensor, H: torch.Tensor, R: torch.Tensor,
         v = torch.clamp(W @ H, min=_EPS)                           # (J,F,N)
         R, scale, z, nll = _spatial_estep(XX, v, R)
         W = W * scale[..., None]
-        for _ in range(n_nmf_inner):
-            W, H = _nmf_inner(z, W, H)
+        with Timer(X.device, name="separate.nmf"):
+            for _ in range(n_nmf_inner):
+                W, H = _nmf_inner(z, W, H)
         nlls.append(nll)
     return MultichannelNMF(W, H, R, torch.stack(nlls))
 
@@ -243,28 +256,40 @@ def separate_signal(x, n_sources: int = 2, n_components: int = 4, n_em: int = 50
     x = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x))
     x = x.astype(np.float32)
     C, T = x.shape
-    X = host_stft_stack(x, n_fft, hop_length, fnc=True, device=dev)   # (F, N, C)
+    with Timer(dev, name="separate", C=C, T=T, J=n_sources, K=n_components, n_em=n_em,
+               spectral_model=spectral_model):
+        with Timer(dev, name="separate.stft"):
+            X = host_stft_stack(x, n_fft, hop_length, fnc=True, device=dev)   # (F, N, C)
 
-    R_init = None
-    if spatial_init == "demix":
-        from exemplars_vc_tpu_torch.separate.demix import demix
+        R_init = None
+        if spatial_init == "demix":
+            from exemplars_vc_tpu_torch.separate.demix import demix
 
-        est = demix(x, n_sources=n_sources, n_fft=n_fft, hop_length=hop_length, device=dev)
-        R_init = est.spatial_init(np.arange(X.shape[0]) / n_fft, device=dev)
-    elif spatial_init != "random":
-        raise ValueError(f"unknown spatial_init {spatial_init!r}")
+            est = demix(x, n_sources=n_sources, n_fft=n_fft, hop_length=hop_length, device=dev)
+            R_init = est.spatial_init(np.arange(X.shape[0]) / n_fft, device=dev)
+        elif spatial_init != "random":
+            raise ValueError(f"unknown spatial_init {spatial_init!r}")
 
-    if spectral_model in ("hmm", "shmm"):
-        from exemplars_vc_tpu_torch.separate.hmm import fit_multichannel_hmm
+        F, N, _ = X.shape
+        hmm = spectral_model in ("hmm", "shmm")
+        if not hmm and spectral_model != "nmf":
+            raise ValueError(f"unknown spectral_model {spectral_model!r}")
+        with Timer(dev, name="separate.em", F=F, N=N, C=C, J=n_sources, K=n_components,
+                   n_em=n_em, n_inner=0 if hmm else 1):
+            if hmm:
+                from exemplars_vc_tpu_torch.separate.hmm import fit_multichannel_hmm
 
-        model = fit_multichannel_hmm(
-            X, n_sources=n_sources, n_states=n_components, n_em=n_em,
-            sticky=spectral_model == "shmm", key=key, R_init=R_init, device=dev)
-    elif spectral_model == "nmf":
-        model = fit_multichannel_nmf(
-            X, n_sources=n_sources, n_components=n_components, n_em=n_em,
-            key=key, R_init=R_init, device=dev)
-    else:
-        raise ValueError(f"unknown spectral_model {spectral_model!r}")
-    Y = _wiener_images(X, model.W, model.H, model.R)    # (J, F, N, C)
-    return images_istft(Y, n_fft, hop_length, T), model
+                model = fit_multichannel_hmm(
+                    X, n_sources=n_sources, n_states=n_components, n_em=n_em,
+                    sticky=spectral_model == "shmm", key=key, R_init=R_init, device=dev)
+            else:
+                model = fit_multichannel_nmf(
+                    X, n_sources=n_sources, n_components=n_components, n_em=n_em,
+                    key=key, R_init=R_init, device=dev)
+        with Timer(dev, name="separate.images"):
+            Y = _wiener_images(X, model.W, model.H, model.R)    # (J, F, N, C)
+            images = images_istft(Y, n_fft, hop_length, T)
+    return images, model
+
+
+separate_signal.em_iters = 0
